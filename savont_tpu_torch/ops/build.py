@@ -1,0 +1,88 @@
+"""Build + load the port's CUDA kernels (ops/csrc/*.cu) via nvcc and ctypes.
+
+Compiled at first use into build/savont_tpu_torch/ at the repo root, one
+shared library for all sources with a plain C interface (no PyTorch
+headers, so a build takes seconds), cached by a hash of the sources and
+flags.  A missing nvcc or a failed build raises with nvcc's stderr: there
+is no fallback to the plain PyTorch versions on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "savont_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+# nvcc's stderr (ptxas register / spill report) and wall seconds of the
+# last build in this process; 0.0 when the library came from the cache
+BUILD_INFO = {"log": "", "seconds": 0.0, "path": ""}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sw_forward_launch.restype = i
+    lib.sw_forward_launch.argtypes = [
+        p, p, p, p,            # q, t, lo, tlens
+        i, i, i, i,            # B, Lq, Lt, band
+        i, i, i, i,            # match, mismatch, gap_open, gap_ext
+        i, p, p, p,            # emit_payload, out, payload, stream
+    ]
+    lib.sw_walk_launch.restype = i
+    lib.sw_walk_launch.argtypes = [
+        p, p, p, p, p,         # payload, lo, score, ri, bj
+        i, i, i, i, i,         # B, Lq, band, ops_max, maxrun
+        p, p, p,               # cigar, meta, stream
+    ]
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Return the loaded kernel library, compiling it first if needed."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        srcs = sorted(_CSRC.glob("*.cu"))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in srcs:
+            h.update(s.name.encode())
+            h.update(s.read_bytes())
+        so = BUILD_DIR / f"libsavont_kernels_{h.hexdigest()[:16]}.so"
+        if not so.exists():
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                capture_output=True, text=True,
+            )
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stderr}")
+            os.replace(tmp, so)
+            BUILD_INFO.update(log=r.stderr, seconds=time.perf_counter() - t0)
+        lib = ctypes.CDLL(str(so))
+        _bind(lib)
+        BUILD_INFO["path"] = str(so)
+        _LIB = lib
+        return lib
