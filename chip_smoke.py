@@ -3,34 +3,41 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases (each raises on failure; nothing catches it, so the exit code is
-non-zero):
-  1. device   - require a CUDA card; print its name, the torch / CUDA
-                versions, nvidia-smi's name and power limit, and whether the
-                host C++ oracle (native/swalign.cpp) loaded;
-  2. build    - compile savont_tpu_torch/ops/csrc/*.cu with nvcc;
-  3. kernels  - seed-pinned planner jobs on random ~1,450 bp templates
-                (substitutions, 1-6 bp and 40-60 bp deletions, both
-                strands): >= 2,048 pairs at band 48 and a band-128 batch.
-                Kernel 1 (NM and payload modes) and kernel 2 must equal their
-                plain PyTorch versions on the card exactly (tolerance 0, all
-                outputs are integers), and the port's job routes must equal
-                the host oracle (savont_tpu's run_jobs / run_jobs_nm on the
-                host path), CIGARs included;
-  4. main path - a seed-pinned 5,000-read fastq through
-                `savont_tpu_torch.cli.main(["asv", ..., "--device", "cuda"])`
-                (what `python -m savont_tpu_torch` runs) and through
-                savont_tpu's host run_cluster: outputs byte-identical, every
-                ASV at NM=0 against the templates, every kernel launched and
-                no plain version called during the card run.
+It imports nothing of jax or of the JAX package.  Phases (each raises on
+failure; nothing catches it, so the exit code is non-zero):
+  1. device    - require a CUDA card; print its name, the torch / CUDA
+                 versions and nvidia-smi's name and power limit; build and
+                 load the port's host C++ oracle
+                 (savont_tpu_torch/native/swalign.cpp);
+  2. build     - compile savont_tpu_torch/ops/csrc/*.cu with nvcc, one
+                 process per source, all started together;
+  3. kernels   - seed-pinned jobs from the port's planner on random ~1,450 bp
+                 templates (substitutions, 1-6 bp and 40-60 bp deletions,
+                 both strands): >= 2,048 pairs at band 48 and a band-128
+                 batch.  Kernel 1 (NM and payload modes) and kernel 2 must
+                 equal their plain PyTorch versions on the card, and the
+                 port's job routes the port's host oracle, CIGARs included;
+                 the three roofline kernels must equal their plain versions.
+                 Tolerance 0 throughout: every output is an integer;
+  4. roofline  - the integer roofline probe's timed runs
+                 (savont_tpu_torch.probes.roofline.measure): the card's
+                 int32 max/add rate, which bounds kernel 1;
+  5. main path - a seed-pinned 5,000-read fastq through
+                 `savont_tpu_torch.cli.main(["asv", ..., "--device", "cuda"])`
+                 (what `python -m savont_tpu_torch` runs), once untimed and
+                 once timed: the outputs must equal the sha256 digests pinned
+                 below (those of the JAX package's host run on the same
+                 reads; tests/test_torch_chip_smoke.py holds them to it),
+                 every ASV must be at NM=0 against the templates, every
+                 kernel launched and no plain version called.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import gzip
+import hashlib
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -45,6 +52,29 @@ N_PAIRS_MIN = 2048
 N_READS = 5000
 TEMPLATE_LEN = 1450
 SEED = 2026
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+MAXRUN = 512
+# integer instructions per DP cell in kernel 1's inner loop (band <= 64),
+# counted from its SASS (python -m savont_tpu_torch.probes.roofline --sass
+# DIR, sass_loops.json): NM mode 61 of the 88 instructions of a one-cell
+# loop trip, payload mode 121 of 146 in a two-cell trip; the rest are local
+# and global loads and stores and branches
+OPS_PER_CELL = {"sw_forward_nm": 61, "sw_forward_payload": 60.5}
+# sha256 of the outputs of the JAX package's host run_cluster(threads=4) on
+# write_reads' fastq, named reads.fq.gz
+DIGESTS = {
+    "final_asvs.fasta": "f77dec4f95ac143c7f9744bd6fca0b8757824af1f1e85d39c04208a6b2bb6f13",
+    "feature-table.tsv": "5508ec928bf4106aaece7efe0c686abb5f30c8a15b0f37c7d911f85ae37a5463",
+    "temp/read_to_asv_mappings.tsv": "edaf681418d63f60bc88d8e4ad7bd85924beff57901ca6380f76d987525944cd",
+}
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "sw_forward_nm": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
+    "sw_forward_payload": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
+    "sw_walk": ("savont_tpu_torch/ops/csrc/sw_walk.cu", "savont_tpu/ops/align_jax.py:414"),
+    "roofline_peak": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:43"),
+    "roofline_ilp": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:59"),
+    "roofline_swar": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:87"),
+}
 
 
 def log(msg: str) -> None:
@@ -93,22 +123,35 @@ def mutate(rng, seq: bytes, kind: int) -> bytes:
     return s
 
 
-def make_jobs(rng, n_templates: int, reads_per: int, band: int):
+def make_pairs(rng, n_templates: int, reads_per: int) -> list[tuple[bytes, list[bytes]]]:
+    """n_templates random templates, each with reads_per mutated reads."""
     import numpy as np
 
-    from savont_tpu.ops.align import TargetIndex
-    from savont_tpu.ops.align_batch import plan_jobs
-    from savont_tpu.ops.encode import revcomp_bytes
+    from savont_tpu_torch.ops.encode import revcomp_bytes
 
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    jobs = []
+    out = []
     for _ in range(n_templates):
         t = rng.choice(bases, TEMPLATE_LEN).tobytes()
-        idx = TargetIndex([t])
+        reads = []
         for k in range(reads_per):
             q = mutate(rng, t, k % 4)
             if (k // 4) % 2:
                 q = revcomp_bytes(q)
+            reads.append(q)
+        out.append((t, reads))
+    return out
+
+
+def plan(pairs, band: int) -> list:
+    """The port's planner over make_pairs' output: one index per template."""
+    from savont_tpu_torch.ops.align import TargetIndex
+    from savont_tpu_torch.ops.align_batch import plan_jobs
+
+    jobs = []
+    for t, reads in pairs:
+        idx = TargetIndex([t])
+        for q in reads:
             jobs.extend(plan_jobs(idx, q, band=band, min_anchors=2))
     return jobs
 
@@ -124,15 +167,16 @@ def max_abs_diff(pairs) -> int:
 
 
 def check_kernels(jobs, band: int, timed: bool) -> dict:
-    """Kernels against their plain versions on the card, and the port's job
-    routes against the host oracle.  Returns per-kernel error and times."""
+    """Kernels 1 and 2 against their plain versions on the card, and the
+    port's job routes against the port's host oracle.  Returns per kernel
+    the error, and with `timed` the times and the shapes its bound needs."""
     import numpy as np
     import torch
 
-    from savont_tpu.ops.align_batch import run_jobs, run_jobs_nm
     from savont_tpu_torch.ops.align_torch import (
         jobs_to_tensors, sw_forward, sw_forward_jobs, sw_forward_reference,
     )
+    from savont_tpu_torch.ops.host_dp import run_jobs_host, run_jobs_nm_host
     from savont_tpu_torch.ops.traceback_torch import (
         sw_traceback_jobs, walk_rle, walk_rle_reference,
     )
@@ -140,8 +184,9 @@ def check_kernels(jobs, band: int, timed: bool) -> dict:
     order = sorted(range(len(jobs)), key=lambda i: len(jobs[i].qcodes))
     sjobs = [jobs[i] for i in order]
     q, t, lo, tl = jobs_to_tensors(sjobs, "cuda")
-    B = q.shape[0]
-    ops_max = q.shape[1] + t.shape[1]
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    ops_max = Lq + Lt
     res = {}
 
     nm_k = sw_forward(q, t, lo, tl, band)
@@ -180,15 +225,20 @@ def check_kernels(jobs, band: int, timed: bool) -> dict:
             k1 = cuda_ms(kern, 5)
             k2 = cuda_ms(kern, 5)
             p2 = cuda_ms(plain, 1)
-            res[name].update(ms=min(k1, k2), plain_ms=min(p1, p2), ms_all=[k1, k2], plain_ms_all=[p1, p2])
+            res[name].update(ms=min(k1, k2), plain_ms=min(p1, p2))
             log(f"  {name}: kernel {min(k1, k2):.3f} ms ({1e3 * min(k1, k2) / B:.3f} us/pair), "
                 f"plain {min(p1, p2):.1f} ms ({1e3 * min(p1, p2) / B:.1f} us/pair), "
-                f"{B} pairs, Lq {q.shape[1]}, band {band}")
+                f"{B} pairs, Lq {Lq}, band {band}")
+        # what the bounds need: the shapes, and the walked path lengths
+        # (the op counts of the CIGAR runs kernel 2 wrote)
+        cig = walk_k[0].cpu().numpy().view(np.uint32)
+        res["shape"] = {"B": B, "Lq": Lq, "Lt": Lt, "band": band,
+                        "walk_steps": int((cig >> 4).sum())}
 
     # the port's job routes (kernel 1 + kernel 2 on the card) against the
-    # host oracle, outside any routing seam
-    host_nm = run_jobs_nm(jobs, band=band)
-    host_tb = run_jobs(jobs, band=band)
+    # port's host oracle (native/swalign.cpp)
+    host_nm = run_jobs_nm_host(jobs, band)
+    host_tb = run_jobs_host(jobs, band)
     port_nm = sw_forward_jobs(jobs, band, "cuda")
     port_tb = sw_traceback_jobs(jobs, band, device="cuda")
     for i, (h, p) in enumerate(zip(host_nm, port_nm)):
@@ -211,13 +261,35 @@ def check_kernels(jobs, band: int, timed: bool) -> dict:
     return res
 
 
+def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
+    """Least time for kernels 1 and 2 at these shapes: the larger of the
+    integer operations over the measured int32 rate and the bytes (each
+    input read once, each output written once) over the card's memory
+    rate.  Kernel 2 is a latency-bound sequential walk; its bound is its
+    bytes: one payload byte and one lo word per walked step, the start
+    cells, and the CIGAR rows and meta it writes."""
+    B, Lq, Lt, band = shape["B"], shape["Lq"], shape["Lt"], shape["band"]
+    cells = B * Lq * band
+    inputs = 4 * (B * Lq + B * Lt + B * (Lq + 1) + B)
+    out = {}
+    for name, out_bytes in (("sw_forward_nm", 16 * B), ("sw_forward_payload", cells + 12 * B)):
+        t_ops = cells * OPS_PER_CELL[name] / int32_ops_per_s * 1e3
+        t_bytes = (inputs + out_bytes) / HBM_BYTES_PER_S * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "cells": cells}
+    walk_bytes = shape["walk_steps"] * 5 + 12 * B + 4 * B * MAXRUN + 24 * B
+    out["sw_walk"] = {"bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    return out
+
+
 def write_reads(path: Path, tpl_path: Path, rng) -> None:
     """5,000 ONT-like reads from 10 templates (5 random, 5 variants with 4-6
     SNPs): 1.5% substitutions each, 30% with a 1-2 bp deletion, 10% with a
     2-6 bp deletion, 2% with a 50 bp deletion, half reverse-complemented."""
     import numpy as np
 
-    from savont_tpu.ops.encode import revcomp_bytes
+    from savont_tpu_torch.ops.encode import revcomp_bytes
 
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     templates = []
@@ -248,60 +320,50 @@ def write_reads(path: Path, tpl_path: Path, rng) -> None:
             out.write(f"@t{ti}_r{i}\n{s.decode()}\n+\n{'I' * len(s)}\n")
 
 
+def main_path_rng():
+    """The generator in the state write_reads starts from: after the draws
+    of phase 3's two job sets."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    make_pairs(rng, 48, 48)
+    make_pairs(rng, 8, 32)
+    return rng
+
+
+def output_digests(out_dir: Path) -> dict[str, str]:
+    return {rel: hashlib.sha256((out_dir / rel).read_bytes()).hexdigest() for rel in DIGESTS}
+
+
 def main_path(work: Path, rng) -> dict:
-    from savont_tpu.config import ClusterArgs
-    from savont_tpu.pipeline import stage1_kmers
-    from savont_tpu.pipeline.asv import run_cluster
-    from savont_tpu.validate import validate_asvs
     from savont_tpu_torch import cli
+    from savont_tpu_torch.ops import align_batch
     from savont_tpu_torch.ops.align_torch import LAUNCHES, REFERENCE_CALLS, reset_counters
+    from savont_tpu_torch.validate import validate_asvs
 
     fq = work / "reads.fq.gz"
     tpl = work / "templates.fa"
     write_reads(fq, tpl, rng)
 
-    # one untimed host run first: the first use of each host C++ kernel in
-    # a process compiles it with g++, which would otherwise be timed
-    for tag in ("host_warmup", "host"):
-        stage1_kmers._READ_CACHE.clear()
+    def run(tag: str) -> float:
         t0 = time.perf_counter()
-        run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(work / tag), threads=4))
-        host_s = time.perf_counter() - t0
+        rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(work / tag),
+                       "--device", "cuda", "-t", "4"])
+        if rc != 0:
+            raise AssertionError(f"savont_tpu_torch asv exited {rc}")
+        return time.perf_counter() - t0
 
-    # wall seconds spent inside the port's DP routes (packing, kernels,
-    # copies back to the host): what the card path costs of the whole run
-    from savont_tpu_torch.ops import align_batch as port_ab
-
-    routes = (port_ab.run_jobs, port_ab.run_jobs_nm)
-    dp_s = [0.0]
-
-    def timed(fn):
-        def run(jobs, band=None, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(jobs, band, **kw)
-            finally:
-                dp_s[0] += time.perf_counter() - t
-        return run
-
-    port_ab.run_jobs, port_ab.run_jobs_nm = (timed(f) for f in routes)
-    stage1_kmers._READ_CACHE.clear()
+    warm_s = run("warmup")  # first run in the process: untimed
     reset_counters()
-    t0 = time.perf_counter()
-    try:
-        rc = cli.main(["asv", str(fq), "-o", str(work / "port"), "--device", "cuda", "-t", "4"])
-    finally:
-        port_s = time.perf_counter() - t0
-        port_ab.run_jobs, port_ab.run_jobs_nm = routes
+    for k in align_batch.ROUTE_SECONDS:
+        align_batch.ROUTE_SECONDS[k] = 0.0
+    port_s = run("port")
     launches, ref_calls = dict(LAUNCHES), dict(REFERENCE_CALLS)
-    if rc != 0:
-        raise AssertionError(f"savont_tpu_torch asv exited {rc}")
+    dp_s = sum(align_batch.ROUTE_SECONDS.values())
 
-    for rel in ("final_asvs.fasta", "feature-table.tsv", "temp/read_to_asv_mappings.tsv"):
-        a = (work / "host" / rel).read_bytes()
-        b = (work / "port" / rel).read_bytes()
-        if a != b:
-            raise AssertionError(f"{rel} differs between the host run and the card run")
+    got = output_digests(work / "port")
+    if got != DIGESTS:
+        raise AssertionError(f"outputs differ from the pinned digests of the host run: {got}")
     val = validate_asvs(str(work / "port" / "final_asvs.fasta"), str(tpl))
     if not val or any(v.nm != 0 for v in val):
         raise AssertionError(f"ASVs not all NM=0 against the templates: {val}")
@@ -310,35 +372,36 @@ def main_path(work: Path, rng) -> dict:
             raise AssertionError(f"kernel {k} was not launched on the main path: {launches}")
     if any(ref_calls.values()):
         raise AssertionError(f"plain versions ran during the card run: {ref_calls}")
-    log(f"main path: {N_READS} reads, {len(val)} ASVs all NM=0, outputs byte-identical; "
-        f"host run_cluster {host_s:.2f} s (after a warm-up run), savont_tpu_torch asv "
-        f"--device cuda {port_s:.2f} s (wall, kernel build excluded; {dp_s[0]:.2f} s of it "
-        f"inside the port's DP routes); "
-        f"launches {launches}; plain calls {ref_calls}")
-    return {"launches": launches, "host_s": host_s, "port_s": port_s, "n_asvs": len(val)}
+    log(f"main path: {N_READS} reads, {len(val)} ASVs all NM=0, outputs equal the host "
+        f"run's pinned digests; savont_tpu_torch asv --device cuda {port_s:.2f} s warm "
+        f"(first run {warm_s:.2f} s; wall, kernel build excluded; {dp_s:.2f} s of it inside "
+        f"the DP routes {dict(align_batch.ROUTE_SECONDS)}); launches {launches}; "
+        f"plain calls {ref_calls}")
+    return {"launches": launches, "port_s": port_s, "n_asvs": len(val)}
 
 
 def main() -> int:
-    if not (ROOT / "savont_tpu_torch").is_dir() or not (ROOT / "savont_tpu").is_dir():
+    if not (ROOT / "savont_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
-              "(savont_tpu_torch/ and savont_tpu/ beside it)", file=sys.stderr)
+              "(savont_tpu_torch/ beside it)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import numpy as np
     import torch
 
     # phase 1: device
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    os.environ.pop("SAVONT_ALIGN_BACKEND", None)  # the oracle is the host path
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"nvidia-smi: {smi}")
-    from savont_tpu.ops.native_build import get_lib
+    from savont_tpu_torch.ops.native_build import get_lib
 
-    log(f"host C++ oracle (native/swalign.cpp) loaded: {get_lib() is not None}")
+    oracle = get_lib()
+    if oracle is None:
+        raise AssertionError("the host C++ oracle (savont_tpu_torch/native/swalign.cpp) did not build")
+    log(f"host C++ oracle loaded: {oracle._name}")
 
     # phase 2: build
     from savont_tpu_torch.ops.build import BUILD_INFO, build_kernels
@@ -351,32 +414,63 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     # phase 3: kernels against their plain versions and the host oracle
+    import numpy as np
+
+    from savont_tpu_torch.probes import roofline
+
     rng = np.random.default_rng(SEED)
-    jobs = make_jobs(rng, n_templates=48, reads_per=48, band=BAND)
+    jobs = plan(make_pairs(rng, 48, 48), BAND)
     if len(jobs) < N_PAIRS_MIN or not any(max_jump(j) > 2 for j in jobs):
         raise AssertionError(f"job set too small or without band jumps > 2: {len(jobs)} pairs")
     res = check_kernels(jobs, BAND, timed=True)
-    check_kernels(make_jobs(rng, n_templates=8, reads_per=32, band=OPERON_BAND),
-                  OPERON_BAND, timed=False)
+    check_kernels(plan(make_pairs(rng, 8, 32), OPERON_BAND), OPERON_BAND, timed=False)
+    roof_err = roofline.check()
+    if any(roof_err.values()):
+        raise AssertionError(f"roofline kernels differ from their plain versions: {roof_err}")
+    log(f"  roofline kernels == plain (exact, {roofline.CHECK_ITERS} iterations): {roof_err}")
 
-    # phase 4: the main path
+    # phase 4: the roofline probe
+    roofline.reset_counters()
+    roof = roofline.measure()
+    roof_launches = dict(roofline.LAUNCHES)
+    for name, n in roof_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the probe: {roof_launches}")
+    for k in roofline.KINDS:
+        r = roof[k]
+        log(f"  roofline {k}: card {r['card']['tops']:.3f} T ops/s "
+            f"({r['card']['tvalues']:.3f} T values/s), one SM {r['one_sm']['tops']:.4f} T ops/s; "
+            f"{roofline.PLAIN_ITERS} iterations: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms")
+    log(f"roofline: int32 max/add {roof['int32_tops']:.3f} T ops/s measured, "
+        f"{roof['published_dispatch_tops']:.3f} T instructions/s published dispatch rate "
+        f"({roof['sms']} SMs x {roofline.DISPATCH_LANES_PER_SM} x max SM clock); "
+        f"launches {roof_launches}")
+
+    # phase 5: the main path
     work = Path(tempfile.mkdtemp(prefix="savont_chip_smoke_"))
     try:
         mp = main_path(work, rng)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    sources = {
-        "sw_forward_nm": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
-        "sw_forward_payload": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
-        "sw_walk": ("savont_tpu_torch/ops/csrc/sw_walk.cu", "savont_tpu/ops/align_jax.py:414"),
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
-         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()
-    ]
+    bounds = sw_bounds(res["shape"], roof["int32_tops"] * 1e12)
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        if name.startswith("roofline_"):
+            r = roof[name.removeprefix("roofline_")]
+            entry = {"launches": roof_launches[name], "max_abs_err": roof_err[name.removeprefix("roofline_")],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"]}
+        else:
+            entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
+                     "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
+                     "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"]}
+        # no single PyTorch call computes a banded Smith-Waterman, its
+        # traceback walk, or a dependent max/add chain
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **entry, "library_ms": None})
+    log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
+        f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,70 +1,574 @@
-"""The port's alignment routes and the seam that points savont_tpu at them.
+"""Batched banded alignment on the port's device.
 
-`run_jobs` and `run_jobs_nm` keep the signatures and result contracts of
-savont_tpu.ops.align_batch.run_jobs / run_jobs_nm, and run every job on the
-port's device: kernel 1 (payload mode) + kernel 2 for CIGARs, kernel 1 (NM
-mode) for NM-only scoring.
+- The planner: seeding + chaining turn (query, target) pairs into
+  AlignJobs, each a query, a target and a raw per-row band corridor
+  (plan_jobs, plan_jobs_batch, _plan_pairs).
+- The routes: run_jobs and run_jobs_nm run every job on `device`, kernel 1
+  (payload mode) + kernel 2 for CIGARs and kernel 1 (NM mode) for NM-only
+  scoring, or their plain PyTorch versions on "cpu".
+- The consumers: align_pairs, align_pairs_indexed, align_pairs_nm,
+  align_pairs_nm_values_indexed and map_batch plan their pairs and send the
+  jobs straight to the routes; every one takes the device explicitly.
+
+The host C++ DP that the routes are held against is ops/host_dp.py (the
+oracle); no consumer here takes it.
 """
 from __future__ import annotations
 
-import os
-from contextlib import contextmanager
-from functools import partial
+import time
+from dataclasses import dataclass
 
-from savont_tpu.ops import align_batch as _host
-from savont_tpu.ops.align import resolve_band
+import numpy as np
 
-from ..device import resolve_device
+from .align import (
+    Mapping,
+    TargetIndex,
+    _band_centers,
+    _chain_anchors,
+    ascii_to_align_codes,
+    evict_half,
+    resolve_band,
+)
 from .align_torch import sw_forward_jobs
+from .encode import revcomp_bytes
 from .traceback_torch import sw_traceback_jobs
 
+_QCODE_CACHE: dict[tuple[bytes, int], np.ndarray] = {}
+_QCODE_CACHE_MAX = 262144
 
-def run_jobs(jobs, band: int | None = None, *, device) -> list[tuple | None]:
-    """Per job (score, q0, q1, t0, t1, cigar_u32, nm) or None, as host
-    run_jobs returns them (stage 4-6 CIGAR consumers)."""
-    band = resolve_band(band)
-    if not jobs:
-        return []
-    return sw_traceback_jobs(jobs, band, device=device)
-
-
-def run_jobs_nm(jobs, band: int | None = None, *, device) -> list[tuple | None]:
-    """Per job (score, 0, q_end, 0, t_end, [], nm) or None: the starts are 0,
-    as in the Pallas NM route this replaces (stage 7 reads only nm)."""
-    band = resolve_band(band)
-    if not jobs:
-        return []
-    return sw_forward_jobs(jobs, band, device)
+# bytes-IDENTITY keyed code cache for the big-batch planner path: entry is
+# [bytes, fwd_codes, rc_codes|None]; holding the bytes object pins its id.
+_IDCODE_CACHE: dict[int, list] = {}
+_IDCODE_CACHE_MAX = 400_000
 
 
-@contextmanager
-def device_routes(device):
-    """Route savont_tpu's DP through the port for the length of one run.
+def _qcodes_cached(qb: bytes, strand: int) -> np.ndarray:
+    """Oriented query codes, memoized across planning calls: the same read
+    is planned against several candidate targets (one group per target), so
+    a per-call cache re-encoded every read once per group."""
+    key = (qb, strand)
+    hit = _QCODE_CACHE.get(key)
+    if hit is None:
+        if len(_QCODE_CACHE) >= _QCODE_CACHE_MAX:
+            evict_half(_QCODE_CACHE)
+        if strand == 1:
+            from .encode import registered_planner_codes
 
-    This is the only place the port reaches into savont_tpu, and it changes
-    no file of it.  Every DP call on the asv main path ends in
-    savont_tpu.ops.align_batch.run_jobs or run_jobs_nm, looked up as module
-    globals at call time, and the host struct-of-arrays fast paths step
-    aside whenever SAVONT_ALIGN_BACKEND is non-empty.  So the seam does
-    three things, and undoes all three on exit, even on an exception:
+            hit = registered_planner_codes(qb)
+        if hit is None:
+            hit = ascii_to_align_codes(qb if strand == 1 else revcomp_bytes(qb))
+        _QCODE_CACHE[key] = hit
+    return hit
 
-    1. sets SAVONT_ALIGN_BACKEND=torch (savont_tpu recognises neither
-       "jax" nor "pallas" in it, so no jax path is taken);
-    2. binds savont_tpu.ops.align_batch.run_jobs and run_jobs_nm to this
-       module's versions;
-    3. sets the port's device on them (`device` is resolved first:
-       "cuda" raises when no card is visible).
-    """
-    dev = resolve_device(device)
-    saved = (os.environ.get("SAVONT_ALIGN_BACKEND"), _host.run_jobs, _host.run_jobs_nm)
-    os.environ["SAVONT_ALIGN_BACKEND"] = "torch"
-    _host.run_jobs = partial(run_jobs, device=dev)
-    _host.run_jobs_nm = partial(run_jobs_nm, device=dev)
-    try:
-        yield dev
-    finally:
-        env, _host.run_jobs, _host.run_jobs_nm = saved
-        if env is None:
-            os.environ.pop("SAVONT_ALIGN_BACKEND", None)
+
+def _qcodes_cached_batch(items: list[tuple[bytes, int]]) -> list[np.ndarray]:
+    """Batched _qcodes_cached: all cache misses are encoded through ONE
+    concatenated LUT gather (the per-call numpy overhead dominated at tens
+    of thousands of small sequences).  Same values, same cache.
+
+    Large one-shot batches (whole-readset planner sweeps like the stage-7
+    tie-break) bypass the cache entirely: the per-item bytes-key hashing +
+    dict churn costs more than re-encoding, and inserting would clear the
+    cache out from under the small repeated batches it serves."""
+    from .align import _ASCII_CODE
+
+    out: list[np.ndarray | None] = [None] * len(items)
+    if len(items) >= 4096:
+        # encode each + strand once; - strands derive from the + codes
+        # (reverse + 3-complement, code 4 fixed).  Verified byte-exhaustively
+        # equal to ascii_to_align_codes(revcomp_bytes(qb)) for every byte
+        # EXCEPT U/u (revcomp_bytes leaves U unchanged while the LUT folds
+        # it into T) — sequences containing U take the bytes path.  Skips
+        # the second 100+ MB bytes join + LUT pass at scale.
+        #
+        # Cross-call cache keyed by BYTES IDENTITY: TwinRead.seq_bytes()
+        # memoizes one bytes object per read, and every planner stage
+        # (stage-4 votes, pileups, stage-5, stage-7) re-encodes the same
+        # reads once per slab — 4.7 s of the 100k wall before this cache.
+        # Keying by id() is safe because the entry holds the bytes object
+        # (pins it: its id can't be reused while the entry lives).
+        fwd_ids: dict[bytes, int] = {}
+        fwd_of = [fwd_ids.setdefault(qb, len(fwd_ids)) for qb, _st in items]
+        bufs = list(fwd_ids.keys())
+        n_u = len(bufs)
+        fwd: list[np.ndarray | None] = [None] * n_u
+        if len(_IDCODE_CACHE) > _IDCODE_CACHE_MAX:
+            evict_half(_IDCODE_CACHE)
+        ents = [_IDCODE_CACHE.get(id(b)) for b in bufs]
+        miss = [i for i, e in enumerate(ents) if e is None or e[0] is not bufs[i]]
+        for i, e in enumerate(ents):
+            if e is not None and e[0] is bufs[i]:
+                fwd[i] = e[1]
+        if miss:
+            # TwinRead-backed bytes reuse their registered 0..3 codes (the
+            # LUT is its exact inverse); only the rest take the join+LUT
+            from .align import _encode_queries_registry
+
+            mcodes = _encode_queries_registry([bufs[i] for i in miss])
+            for c, i in zip(mcodes, miss):
+                fwd[i] = c
+                _IDCODE_CACHE[id(bufs[i])] = [bufs[i], c, None]
+
+        # reverse complements: cache hits first, the rest in ONE
+        # reversed-span gather + one vectorized complement
+        rc: dict[int, np.ndarray] = {}
+        rc_miss: list[int] = []
+        for (_qb, st), fi in zip(items, fwd_of):
+            if st == -1 and fi not in rc:
+                e = _IDCODE_CACHE.get(id(bufs[fi]))
+                if e is not None and e[0] is bufs[fi] and e[2] is not None:
+                    rc[fi] = e[2]
+                else:
+                    rc[fi] = True  # mark; filled below
+                    rc_miss.append(fi)
+        if rc_miss:
+            rl = np.fromiter((len(bufs[fi]) for fi in rc_miss), np.int64, len(rc_miss))
+            roff = np.zeros(len(rc_miss) + 1, dtype=np.int64)
+            np.cumsum(rl, out=roff[1:])
+            total = int(roff[-1])
+            fcat = np.concatenate([fwd[fi] for fi in rc_miss]) if total else np.zeros(0, np.uint8)
+            from .kmers_native import revcomp_codes_ranges_native
+
+            rc_cat = revcomp_codes_ranges_native(fcat, roff, threads=4)
+            if rc_cat is None:
+                # NumPy fallback: reversed span within the concat (start at
+                # end of each seq); three full-size temporaries, so the
+                # native sweep is preferred at scale
+                starts = roff[1:] - 1
+                idx = np.repeat(starts + roff[:-1], rl) - np.arange(total, dtype=np.int64)
+                rc_cat = fcat[idx]
+                np.subtract(3, rc_cat, out=rc_cat, where=rc_cat < 4)
+            for i, fi in enumerate(rc_miss):
+                qb = bufs[fi]
+                if b"U" in qb or b"u" in qb:
+                    # revcomp_bytes folds U/u differently than the LUT path
+                    r = _ASCII_CODE[np.frombuffer(revcomp_bytes(qb), dtype=np.uint8)]
+                else:
+                    r = rc_cat[roff[i] : roff[i + 1]]
+                rc[fi] = r
+                e = _IDCODE_CACHE.get(id(qb))
+                if e is not None and e[0] is qb:
+                    e[2] = r
+
+        return [
+            fwd[fi] if st == 1 else rc[fi]
+            for (qb, st), fi in zip(items, fwd_of)
+        ]
+    miss: list[int] = []
+    for x, key in enumerate(items):
+        hit = _QCODE_CACHE.get(key)
+        if hit is None:
+            miss.append(x)
         else:
-            os.environ["SAVONT_ALIGN_BACKEND"] = env
+            out[x] = hit
+    if miss:
+        bufs = [
+            items[x][0] if items[x][1] == 1 else revcomp_bytes(items[x][0])
+            for x in miss
+        ]
+        off = np.zeros(len(bufs) + 1, dtype=np.int64)
+        np.cumsum(np.fromiter((len(b) for b in bufs), np.int64, len(bufs)), out=off[1:])
+        codes_cat = _ASCII_CODE[np.frombuffer(b"".join(bufs), dtype=np.uint8)]
+        for i, x in enumerate(miss):
+            if len(_QCODE_CACHE) >= _QCODE_CACHE_MAX:
+                evict_half(_QCODE_CACHE)
+            # views, not copies: every byte of the concat buffer IS a cache
+            # entry (all misses are inserted), so pinning it wastes nothing
+            # — and the per-miss .copy() was ~3 us x 100k reads
+            c = codes_cat[off[i] : off[i + 1]]
+            _QCODE_CACHE[items[x]] = c
+            out[x] = c
+    return out
+
+
+@dataclass(slots=True)
+class AlignJob:
+    """One planned banded alignment (post seeding/chaining)."""
+
+    qcodes: np.ndarray  # oriented query codes (0..4)
+    tcodes: np.ndarray  # target codes
+    lo: np.ndarray  # per-row band lower bound (int32, len == len(qcodes))
+    # metadata to build the Mapping afterwards
+    target_id: int
+    strand: int
+    fwd_qlen: int
+
+
+def plan_jobs(
+    index: TargetIndex,
+    query_ascii: bytes | np.ndarray,
+    band: int | None = None,
+    min_anchors: int = 3,
+    no_diag_id: int | None = None,
+) -> list[AlignJob]:
+    """Seeding + chaining for a query against an index; one job per
+    (target, strand) that has a viable chain."""
+    band = resolve_band(band)
+    if isinstance(query_ascii, (bytes, bytearray)):
+        qbytes = bytes(query_ascii)
+    else:
+        qbytes = np.asarray(query_ascii, dtype=np.uint8).tobytes()
+    qf = ascii_to_align_codes(qbytes)
+    from .align import _group_anchors, window_minimizers_cached
+
+    hq, pq, fq = window_minimizers_cached(qbytes, index.w, index.k)
+    qlen = len(qf)
+
+    per_ts = _group_anchors(index, hq, pq, fq, qlen, no_diag_id)
+
+    qr = None
+    jobs: list[AlignJob] = []
+    for (tid, strand), (qa, ta) in per_ts.items():
+        if len(qa) < min_anchors:
+            continue
+        chain = _chain_anchors(qa, ta)
+        if len(chain) < min_anchors:
+            continue
+        if strand == -1 and qr is None:
+            qr = ascii_to_align_codes(revcomp_bytes(qbytes))
+        qcodes = qf if strand == 1 else qr
+        centers = _band_centers(len(qcodes), qa[chain], ta[chain])
+        tcodes = index.targets[tid]
+        n = len(tcodes)
+        b = min(band, max(8, n))
+        lo = np.maximum.accumulate(
+            np.clip(centers - b // 2, 0, max(n - b, 0))
+        ).astype(np.int32)
+        jobs.append(AlignJob(qcodes, tcodes, lo, tid, strand, qlen))
+    return jobs
+
+
+def plan_jobs_batch(
+    index: TargetIndex,
+    queries: list[bytes],
+    band: int | None = None,
+    min_anchors: int = 3,
+    no_diag: bool = False,
+) -> tuple[list[AlignJob], list[int]]:
+    """Seeding + chaining for MANY queries against one index in a single
+    vectorized lookup pass.  Returns (jobs, owner_query_index)."""
+    from .align import window_minimizers_flat_batch
+
+    band = resolve_band(band)
+
+    # gather all query minimizers with query ids (flat pools; large batches
+    # bypass the tuple cache — see window_minimizers_flat_batch)
+    all_h, all_p, all_f, moff = window_minimizers_flat_batch(
+        [bytes(q) for q in queries], index.w, index.k
+    )
+    if len(all_h) == 0 or len(index.h_sorted) == 0:
+        return [], []
+    all_p = all_p.astype(np.int32)
+    qid = np.repeat(np.arange(len(queries)), np.diff(moff)).astype(np.int32)
+    qlens = np.array([len(q) for q in queries], dtype=np.int64)
+
+    # one flat lookup (native binary search when available)
+    from .kmers_native import anchor_search_native
+
+    searched = anchor_search_native(index.h_sorted, all_h)
+    if searched is not None:
+        left, counts, total = searched
+    else:
+        left = np.searchsorted(index.h_sorted, all_h, side="left")
+        right = np.searchsorted(index.h_sorted, all_h, side="right")
+        counts = right - left
+        total = int(counts.sum())
+    if total == 0:
+        return [], []
+
+    # dims for the packed u64 sort key (20+14+1+14+14 bits)
+    dims_fit = (
+        len(queries) < (1 << 20)
+        and len(index.targets) < (1 << 14)
+        and int(qlens.max(initial=0)) - index.k < (1 << 14)
+        and (int(index.h_tpos.max()) if len(index.h_tpos) else 0) < (1 << 14)
+    )
+    keys = None
+    if dims_fit:
+        from .kmers_native import anchor_sorted_keys_native
+
+        keys = anchor_sorted_keys_native(
+            left, counts, all_p, all_f, qid, qlens,
+            index.h_tid, index.h_tpos, index.h_isf,
+            index.k, no_diag, threads=4,
+        )
+    if keys is not None:
+        # native path: expansion + no_diag filter + radix sort done in C.
+        # Group bounds come straight from the high key bits (qid|tid|strand),
+        # so only the anchor coordinates are decoded full-size; the per-group
+        # fields decode from the first key of each group.
+        if len(keys) == 0:
+            return [], []
+        hi_bits = keys >> np.uint64(28)
+        bounds = np.flatnonzero(np.concatenate(([True], hi_bits[1:] != hi_bits[:-1])))
+        grp_off = np.append(bounds, len(keys))
+        kb = keys[bounds]
+        g_qi = (kb >> np.uint64(43)).astype(np.int64)
+        g_tid = ((kb >> np.uint64(29)) & np.uint64(0x3FFF)).astype(np.int64)
+        g_st = np.where((kb >> np.uint64(28)) & np.uint64(1), 1, -1).astype(np.int8)
+        qp_o = ((keys >> np.uint64(14)) & np.uint64(0x3FFF)).astype(np.int64)
+        tpos = (keys & np.uint64(0x3FFF)).astype(np.int64)
+    else:
+        mi = np.repeat(np.arange(len(all_h)), counts)
+        starts = np.repeat(left, counts)
+        within = np.arange(total) - np.repeat(np.concatenate(([0], np.cumsum(counts)[:-1])), counts)
+        hidx = starts + within
+
+        h_qid = qid[mi]
+        h_tid = index.h_tid[hidx]
+        if no_diag:
+            keep = h_tid != h_qid
+            mi, hidx, h_qid, h_tid = mi[keep], hidx[keep], h_qid[keep], h_tid[keep]
+            if len(mi) == 0:
+                return [], []
+        same = index.h_isf[hidx] == all_f[mi]
+        strand = np.where(same, 1, -1).astype(np.int8)
+        qp_o = np.where(same, all_p[mi], (qlens[h_qid] - index.k - all_p[mi])).astype(np.int64)
+        tpos = index.h_tpos[hidx].astype(np.int64)
+        if (
+            dims_fit
+            and int(qp_o.max(initial=0)) < (1 << 14)
+            and int(qp_o.min(initial=0)) >= 0
+        ):
+            key = (
+                (h_qid.astype(np.uint64) << np.uint64(43))
+                | (h_tid.astype(np.uint64) << np.uint64(29))
+                | ((strand == 1).astype(np.uint64) << np.uint64(28))
+                | (qp_o.astype(np.uint64) << np.uint64(14))
+                | tpos.astype(np.uint64)
+            )
+            order = np.argsort(key, kind="stable")
+        else:
+            order = np.lexsort((tpos, qp_o, strand, h_tid, h_qid))
+        h_qid, h_tid, strand, qp_o, tpos = (
+            h_qid[order], h_tid[order], strand[order], qp_o[order], tpos[order],
+        )
+        bounds = np.flatnonzero(
+            np.concatenate(
+                ([True],
+                 (h_qid[1:] != h_qid[:-1]) | (h_tid[1:] != h_tid[:-1]) | (strand[1:] != strand[:-1]))
+            )
+        )
+        grp_off = np.append(bounds, len(h_qid))
+        g_qi, g_tid, g_st = h_qid[bounds], h_tid[bounds], strand[bounds]
+    t_lens = np.array([len(tc) for tc in index.targets], dtype=np.int64)
+
+    from .kmers_native import chain_band_native, get_scan_lib
+
+    jobs: list[AlignJob] = []
+    owners: list[int] = []
+
+    if get_scan_lib() is not None:
+        lo_flat, lo_off, nchain = chain_band_native(
+            qp_o, tpos, grp_off, qlens[g_qi], t_lens[g_tid], band, min_anchors
+        )
+        kept = np.flatnonzero(nchain >= min_anchors)
+        qcodes_all = _qcodes_cached_batch(
+            [(bytes(queries[int(g_qi[g])]), int(g_st[g])) for g in kept]
+        )
+        for g, qcodes in zip(kept, qcodes_all):
+            qi, tid, st = int(g_qi[g]), int(g_tid[g]), int(g_st[g])
+            lo = lo_flat[lo_off[g] : lo_off[g] + len(qcodes)]
+            jobs.append(AlignJob(qcodes, index.targets[tid], lo, tid, st, int(qlens[qi])))
+            owners.append(qi)
+        return jobs, owners
+
+    for g in range(len(bounds)):
+        s, e = int(grp_off[g]), int(grp_off[g + 1])
+        if e - s < min_anchors:
+            continue
+        qi, tid, st = int(g_qi[g]), int(g_tid[g]), int(g_st[g])
+        qa, ta = qp_o[s:e], tpos[s:e]
+        chain = _chain_anchors(qa, ta)
+        if len(chain) < min_anchors:
+            continue
+        qcodes = _qcodes_cached(bytes(queries[qi]), st)
+        centers = _band_centers(len(qcodes), qa[chain], ta[chain])
+        tcodes = index.targets[tid]
+        n = len(tcodes)
+        b = min(band, max(8, n))
+        lo = np.maximum.accumulate(
+            np.clip(centers - b // 2, 0, max(n - b, 0))
+        ).astype(np.int32)
+        jobs.append(AlignJob(qcodes, tcodes, lo, tid, st, int(qlens[qi])))
+        owners.append(qi)
+    return jobs, owners
+
+
+# wall seconds spent inside the routes (packing, kernels, copies back to
+# the host): what the card path costs of a whole run
+ROUTE_SECONDS = {"run_jobs": 0.0, "run_jobs_nm": 0.0}
+
+
+def run_jobs(jobs: list[AlignJob], band: int | None = None, *, device) -> list[tuple | None]:
+    """Per job (score, q0, q1, t0, t1, cigar_u32, nm) or None, on `device`:
+    kernel 1 (payload mode) + kernel 2 (stage 4-6 CIGAR consumers)."""
+    band = resolve_band(band)
+    if not jobs:
+        return []
+    t0 = time.perf_counter()
+    try:
+        return sw_traceback_jobs(jobs, band, device=device)
+    finally:
+        ROUTE_SECONDS["run_jobs"] += time.perf_counter() - t0
+
+
+def run_jobs_nm(jobs: list[AlignJob], band: int | None = None, *, device) -> list[tuple | None]:
+    """Per job (score, 0, q_end, 0, t_end, [], nm) or None, on `device`:
+    kernel 1 (NM mode).  The starts are 0, as in the Pallas NM route of the
+    JAX package (stage 7 reads only nm)."""
+    band = resolve_band(band)
+    if not jobs:
+        return []
+    t0 = time.perf_counter()
+    try:
+        return sw_forward_jobs(jobs, band, device)
+    finally:
+        ROUTE_SECONDS["run_jobs_nm"] += time.perf_counter() - t0
+
+
+def _best_per_pair(n_pairs: int, owner: list[int], jobs: list[AlignJob], raw) -> list[Mapping | None]:
+    """Per pair the highest-scoring job's Mapping (the first job on ties)."""
+    best: list[Mapping | None] = [None] * n_pairs
+    for o, job, r in zip(owner, jobs, raw):
+        if r is None:
+            continue
+        (m,) = _jobs_to_mappings([job], [r])
+        if best[o] is None or m.score > best[o].score:
+            best[o] = m
+    return best
+
+
+def align_pairs(
+    pairs: list[tuple[bytes, bytes]], band: int | None = None, *, device
+) -> list[Mapping | None]:
+    """Batched independent pair alignments with CIGARs.  Targets are
+    deduplicated so a seed/consensus aligned against many reads is indexed
+    once."""
+    all_jobs, owner = _plan_pairs(pairs, band)
+    return _best_per_pair(len(pairs), owner, all_jobs, run_jobs(all_jobs, band, device=device))
+
+
+def align_pairs_indexed(
+    queries: list[bytes], targets: list[bytes],
+    qi: np.ndarray, ti: np.ndarray, band: int | None = None, *, device,
+) -> list[Mapping | None]:
+    """align_pairs of (queries[qi[k]], targets[ti[k]]) per job k, for callers
+    that hold unique sequence pools plus index arrays (stage-4 vote rounds,
+    pileups)."""
+    qi = np.asarray(qi, dtype=np.int64)
+    ti = np.asarray(ti, dtype=np.int64)
+    pairs = [(queries[a], targets[b]) for a, b in zip(qi.tolist(), ti.tolist())]
+    return align_pairs(pairs, band=band, device=device)
+
+
+def align_pairs_nm(
+    pairs: list[tuple[bytes, bytes]], band: int | None = None, *, device
+) -> list[Mapping | None]:
+    """Batched pair alignment for NM-only consumers (stage-7 tie-break):
+    no CIGARs, and query/target starts read 0."""
+    all_jobs, owner = _plan_pairs(pairs, band)
+    return _best_per_pair(len(pairs), owner, all_jobs, run_jobs_nm(all_jobs, band, device=device))
+
+
+def align_pairs_nm_values_indexed(
+    queries: list[bytes], targets: list[bytes],
+    qi: np.ndarray, ti: np.ndarray, band: int | None = None, *, device,
+) -> np.ndarray:
+    """NM of the best alignment of (queries[qi[k]], targets[ti[k]]) per job
+    k as a flat int64 array (-1 = no alignment)."""
+    qi = np.asarray(qi, dtype=np.int64)
+    ti = np.asarray(ti, dtype=np.int64)
+    pairs = [(queries[a], targets[b]) for a, b in zip(qi.tolist(), ti.tolist())]
+    maps = align_pairs_nm(pairs, band=band, device=device)
+    return np.fromiter((m.nm if m is not None else -1 for m in maps), np.int64, len(maps))
+
+
+def _jobs_to_mappings(jobs: list[AlignJob], raw: list[tuple | None]) -> list[Mapping]:
+    out = []
+    for job, r in zip(jobs, raw):
+        if r is None:
+            continue
+        score, q0, q1, t0, t1, cigar, nm = r
+        if job.strand == 1:
+            fq0, fq1 = q0, q1
+        else:
+            fq0, fq1 = job.fwd_qlen - q1, job.fwd_qlen - q0
+        out.append(
+            Mapping(
+                target_id=job.target_id, strand=job.strand, query_start=fq0,
+                query_end=fq1, target_start=t0, target_end=t1, nm=nm,
+                cigar=cigar, score=score,
+            )
+        )
+    return out
+
+
+def map_batch(
+    index: TargetIndex,
+    queries: list[bytes | np.ndarray],
+    band: int | None = None,
+    min_anchors: int = 3,
+    max_hits: int | None = None,
+    no_diag: bool = False,
+    *,
+    device,
+) -> list[list[Mapping]]:
+    """Map many queries against one index with batched DP on `device`.
+
+    Returns per query a hit list sorted like align.map_query (best first,
+    one per target, mapq>0 iff unique best)."""
+    all_jobs, job_owner = plan_jobs_batch(
+        index, [bytes(q) if isinstance(q, (bytes, bytearray)) else np.asarray(q, dtype=np.uint8).tobytes() for q in queries],
+        band=band, min_anchors=min_anchors, no_diag=no_diag,
+    )
+    raw = run_jobs(all_jobs, band=band, device=device)
+
+    per_query: dict[int, list[tuple[AlignJob, tuple]]] = {}
+    for owner, job, r in zip(job_owner, all_jobs, raw):
+        if r is not None:
+            per_query.setdefault(owner, []).append((job, r))
+
+    results: list[list[Mapping]] = []
+    for qi in range(len(queries)):
+        pairs = per_query.get(qi, [])
+        best_by_target: dict[int, Mapping] = {}
+        for job, r in pairs:
+            (m,) = _jobs_to_mappings([job], [r]) or (None,)
+            if m is None:
+                continue
+            prev = best_by_target.get(m.target_id)
+            if prev is None or m.score > prev.score:
+                best_by_target[m.target_id] = m
+        hits = sorted(best_by_target.values(), key=lambda m: (-m.score, m.target_id))
+        for i, m in enumerate(hits):
+            m.is_primary = i == 0
+            m.mapq = 60 if (i == 0 and (len(hits) < 2 or hits[1].score < m.score)) else 0
+        if max_hits is not None:
+            hits = hits[:max_hits]
+        results.append(hits)
+    return results
+
+
+def _plan_pairs(pairs: list[tuple[bytes, bytes]], band: int) -> tuple[list[AlignJob], list[int]]:
+    """Plan independent pairs: group queries by unique target so each target
+    is indexed once and its queries planned in one batch."""
+    groups: dict[bytes, tuple[TargetIndex, list[int]]] = {}
+    for i, (qa, ta) in enumerate(pairs):
+        tb = bytes(ta) if isinstance(ta, (bytes, bytearray)) else np.asarray(ta, dtype=np.uint8).tobytes()
+        g = groups.get(tb)
+        if g is None:
+            g = (TargetIndex([tb]), [])
+            groups[tb] = g
+        g[1].append(i)
+    all_jobs: list[AlignJob] = []
+    owner: list[int] = []
+    for idx, pair_ids in groups.values():
+        qbytes = [
+            bytes(pairs[i][0]) if isinstance(pairs[i][0], (bytes, bytearray)) else np.asarray(pairs[i][0], dtype=np.uint8).tobytes()
+            for i in pair_ids
+        ]
+        jobs, owners_local = plan_jobs_batch(idx, qbytes, band=band, min_anchors=2)
+        all_jobs.extend(jobs)
+        owner.extend(pair_ids[o] for o in owners_local)
+    return all_jobs, owner

@@ -6,8 +6,8 @@ payload mode of _pallas_call_traced (the Pallas kernel), and
 align_jax.sw_forward_meta(smooth=False) / _forward_payload (its XLA plain
 references).  Both versions here take RAW planner corridors (any
 non-decreasing per-row advance), so every job runs through the kernel and
-equals the host oracle (savont_tpu.ops.align_batch host run_jobs /
-run_jobs_nm) without smoothing, lag gates or side paths.
+equals the host oracle (ops/host_dp.py run_jobs_host / run_jobs_nm_host)
+without smoothing, lag gates or side paths.
 
 `sw_forward` is the wrapper: it runs the plain version only for tensors on
 the CPU, and for CUDA tensors launches the kernel or raises.
@@ -17,11 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from savont_tpu.ops.align import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
-from savont_tpu.ops.align_batch import NEG
-
 from ..device import resolve_device
+from .align import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
 from .build import build_kernels
+from .host_dp import NEG
 
 # kernel launches on the card, and calls of the plain versions through the
 # wrappers on the CPU; "walk_overflow" counts pairs whose CIGAR overflowed
@@ -252,7 +251,7 @@ def sw_forward_reference(q, t, lo, tlens, band: int, emit_payload: bool = False)
 def sw_forward_jobs(jobs, band: int, device) -> list[tuple | None]:
     """run_jobs_nm contract on the card: per job (score, 0, q_end, 0, t_end,
     [], nm), or None when score <= 0.  The starts are 0, as in the route
-    this replaces (the Pallas NM route of savont_tpu's run_jobs_nm): the
+    this replaces (the Pallas NM route of the JAX package's run_jobs_nm): the
     kernel carries no start metadata, and its consumer (the stage-7 NM
     tie-break) reads only nm."""
     results: list[tuple | None] = [None] * len(jobs)

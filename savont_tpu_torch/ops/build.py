@@ -1,10 +1,11 @@
 """Build + load the port's CUDA kernels (ops/csrc/*.cu) via nvcc and ctypes.
 
-Compiled at first use into build/savont_tpu_torch/ at the repo root, one
-shared library for all sources with a plain C interface (no PyTorch
-headers, so a build takes seconds), cached by a hash of the sources and
-flags.  A missing nvcc or a failed build raises with nvcc's stderr: there
-is no fallback to the plain PyTorch versions on the card.
+Compiled at first use into build/savont_tpu_torch/ at the repo root: one
+nvcc per source, all started together, then one link into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+cached by a hash of the sources and flags.  A missing nvcc or a failed
+build raises with nvcc's stderr: there is no fallback to the plain PyTorch
+versions on the card.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "savont_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _LOCK = threading.Lock()
@@ -54,6 +55,38 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,         # B, Lq, band, ops_max, maxrun
         p, p, p,               # cigar, meta, stream
     ]
+    lib.roofline_launch.restype = i
+    lib.roofline_launch.argtypes = [
+        i, p, p, p,            # kind, x0, y0, out
+        i, i, i, p,            # n, iters, threads, stream
+    ]
+
+
+def _compile(srcs: list[Path], so: Path) -> str:
+    """nvcc -c for every source at once, then link `so` through a temporary
+    name.  Returns nvcc's stderr (ptxas reports); raises on a failure."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs = [pr.communicate()[1] for pr in procs]  # wait for every one
+    for s, pr, err in zip(srcs, procs, logs):
+        if pr.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s.name} (exit {pr.returncode}):\n{err}")
+    tmp = so.with_name(f"{tag}.tmp")
+    r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                       capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (exit {r.returncode}):\n{r.stderr}")
+    os.replace(tmp, so)
+    return "".join(logs)
 
 
 def build_kernels() -> ctypes.CDLL:
@@ -69,18 +102,9 @@ def build_kernels() -> ctypes.CDLL:
             h.update(s.read_bytes())
         so = BUILD_DIR / f"libsavont_kernels_{h.hexdigest()[:16]}.so"
         if not so.exists():
-            nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            r = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-                capture_output=True, text=True,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stderr}")
-            os.replace(tmp, so)
-            BUILD_INFO.update(log=r.stderr, seconds=time.perf_counter() - t0)
+            log = _compile(srcs, so)
+            BUILD_INFO.update(log=log, seconds=time.perf_counter() - t0)
         lib = ctypes.CDLL(str(so))
         _bind(lib)
         BUILD_INFO["path"] = str(so)

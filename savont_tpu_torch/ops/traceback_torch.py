@@ -9,14 +9,8 @@ route of run_jobs).
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
-
-# the host oracle, bound at import: inside device_routes the module
-# attribute savont_tpu.ops.align_batch.run_jobs is this port's own route
-from savont_tpu.ops.align_batch import run_jobs as _host_run_jobs
 
 from ..device import resolve_device
 from .align_torch import (
@@ -27,6 +21,7 @@ from .align_torch import (
     sw_forward,
 )
 from .build import build_kernels
+from .host_dp import run_jobs_host
 
 MAXRUN = 512
 ST_H, ST_G, ST_E, ST_F = 0, 1, 2, 3
@@ -167,8 +162,8 @@ def sw_traceback_jobs(jobs, band: int, maxrun: int = MAXRUN, device="cuda") -> l
     """run_jobs contract on the card: per job (score, q0, q1, t0, t1,
     cigar_u32, nm), or None when score <= 0.  Every job goes through kernel
     1 (payload mode) and kernel 2, on raw corridors.  Pairs whose CIGAR has
-    more than maxrun runs are re-run on the host oracle, as the reference
-    route does (counted in LAUNCHES["walk_overflow"])."""
+    more than maxrun runs are re-run on the host oracle (ops/host_dp.py), as
+    the reference route does (counted in LAUNCHES["walk_overflow"])."""
     if not jobs:
         return []
     dev = resolve_device(device)
@@ -192,12 +187,7 @@ def sw_traceback_jobs(jobs, band: int, maxrun: int = MAXRUN, device="cuda") -> l
             results[i] = (int(score_h[x]), q0, q1, t0, t1, cigar_h[x, :n_runs].copy(), nm)
     if overflow:
         LAUNCHES["walk_overflow"] += len(overflow)
-        env = os.environ.pop("SAVONT_ALIGN_BACKEND", None)
-        try:
-            host = _host_run_jobs([jobs[i] for i in overflow], band=band)
-        finally:
-            if env is not None:
-                os.environ["SAVONT_ALIGN_BACKEND"] = env
+        host = run_jobs_host([jobs[i] for i in overflow], band)
         for i, r in zip(overflow, host):
             results[i] = r
     return results

@@ -30,9 +30,18 @@ def max_advance(job) -> int:
 
 def mixed_jobs(seed: int, band: int, n: int = 12, lmin: int = 300, lmax: int = 600):
     """Jobs of kinds cycling: substitutions only, 2-6 bp deletions, one
-    60 bp deletion, unrelated query; odd trials reverse-complemented."""
-    rng = np.random.default_rng(seed)
+    60 bp deletion, unrelated query; odd trials reverse-complemented
+    (savont_tpu's planner over mixed_pairs)."""
     jobs = []
+    for q, t in mixed_pairs(seed, n, lmin, lmax):
+        jobs.extend(plan_jobs(TargetIndex([t]), q, band=band, min_anchors=2))
+    return jobs
+
+
+def mixed_pairs(seed: int, n: int = 12, lmin: int = 300, lmax: int = 600) -> list[tuple[bytes, bytes]]:
+    """The (query, target) pairs behind mixed_jobs."""
+    rng = np.random.default_rng(seed)
+    pairs = []
     for trial in range(n):
         t = rand_seq(rng, int(rng.integers(lmin, lmax)))
         q = substitute(rng, t, 0.04)
@@ -48,8 +57,8 @@ def mixed_jobs(seed: int, band: int, n: int = 12, lmin: int = 300, lmax: int = 6
         q = bytes(q)
         if trial % 2:
             q = revcomp_bytes(q)
-        jobs.extend(plan_jobs(TargetIndex([t]), q, band=band, min_anchors=2))
-    return jobs
+        pairs.append((q, t))
+    return pairs
 
 
 def substitution_jobs(seed: int, band: int, n: int, length: int):
@@ -62,3 +71,28 @@ def substitution_jobs(seed: int, band: int, n: int, length: int):
         jobs.extend(plan_jobs(TargetIndex([t]), q, band=band, min_anchors=2))
     return jobs[:n]
 
+
+
+def clear_caches() -> None:
+    """Empty the module-level state of both packages that a pipeline run
+    fills (parsed reads and their encodes, the planner's code and minimizer
+    memos, the planner-code registry), so two runs in one process start
+    alike."""
+    import savont_tpu.ops.align
+    import savont_tpu.ops.align_batch
+    import savont_tpu.ops.encode
+    import savont_tpu.pipeline.stage1_kmers
+    import savont_tpu_torch.ops.align
+    import savont_tpu_torch.ops.align_batch
+    import savont_tpu_torch.ops.encode
+    import savont_tpu_torch.pipeline.stage1_kmers
+
+    for pkg in (savont_tpu, savont_tpu_torch):
+        s1 = pkg.pipeline.stage1_kmers
+        s1._READ_CACHE.clear()
+        s1._ENCODE_CACHE.clear()
+        s1._READ_CACHE_BYTES = 0
+        for cache in (pkg.ops.align._MINI_CACHE, pkg.ops.align._IDMINI_CACHE,
+                      pkg.ops.align_batch._QCODE_CACHE, pkg.ops.align_batch._IDCODE_CACHE,
+                      pkg.ops.encode._CODES_REG):
+            cache.clear()

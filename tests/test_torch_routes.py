@@ -1,20 +1,18 @@
-"""The port's routing seam, device selection, jax-free imports, the no-
-fallback rule for the CUDA kernels, and the CLI surface."""
-import os
+"""The port's device selection, its isolation from jax and savont_tpu, the
+no-fallback rule for the CUDA kernels, and the CLI surface."""
+import json
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
-import savont_tpu.ops.align_batch as host_ab
 from savont_tpu_torch.device import resolve_device
-from savont_tpu_torch.ops import align_batch as port_ab
 from savont_tpu_torch.ops import align_torch, build, traceback_torch
 
-from _torch_jobs import mixed_jobs, rand_seq, substitute
+from _torch_jobs import mixed_jobs
+from test_stage4_mesh import _workload
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -24,71 +22,35 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("env", [None, "jax"])
-def test_device_routes_binds_and_restores(monkeypatch, env):
-    if env is None:
-        monkeypatch.delenv("SAVONT_ALIGN_BACKEND", raising=False)
-    else:
-        monkeypatch.setenv("SAVONT_ALIGN_BACKEND", env)
-    orig = (host_ab.run_jobs, host_ab.run_jobs_nm)
-    with port_ab.device_routes("cpu") as dev:
-        assert dev == torch.device("cpu")
-        assert os.environ["SAVONT_ALIGN_BACKEND"] == "torch"
-        for bound, port in ((host_ab.run_jobs, port_ab.run_jobs),
-                            (host_ab.run_jobs_nm, port_ab.run_jobs_nm)):
-            assert bound.func is port and bound.keywords == {"device": dev}
-    assert (host_ab.run_jobs, host_ab.run_jobs_nm) == orig
-    assert os.environ.get("SAVONT_ALIGN_BACKEND") == env
-
-    with pytest.raises(KeyError):
-        with port_ab.device_routes("cpu"):
-            raise KeyError("boom")
-    assert (host_ab.run_jobs, host_ab.run_jobs_nm) == orig
-    assert os.environ.get("SAVONT_ALIGN_BACKEND") == env
-
-
-def test_bound_routes_run_the_port():
-    """Inside the seam, savont_tpu's align_pairs_nm (host fast path
-    stepped aside) reaches the port's NM route and keeps its winners."""
-    rng = np.random.default_rng(63)
-    pairs = []
-    for _ in range(3):
-        t = rand_seq(rng, 400)
-        pairs.append((bytes(substitute(rng, t, 0.03)), t))
-    host = host_ab.align_pairs_nm(pairs, band=48)
-    calls = align_torch.REFERENCE_CALLS["sw_forward_nm"]
-    with port_ab.device_routes("cpu"):
-        port = host_ab.align_pairs_nm(pairs, band=48)
-    assert align_torch.REFERENCE_CALLS["sw_forward_nm"] == calls + 1
-    assert [(m.score, m.nm, m.target_end) for m in host] == [
-        (m.score, m.nm, m.target_end) for m in port
-    ]
-
-
 def test_resolve_device(no_card):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
-    env = os.environ.get("SAVONT_ALIGN_BACKEND")
-    with pytest.raises(RuntimeError):
-        with port_ab.device_routes("cuda"):
-            pass
-    assert os.environ.get("SAVONT_ALIGN_BACKEND") == env
-    assert not hasattr(host_ab.run_jobs, "func")
     with pytest.raises(ValueError):
         resolve_device("meta")
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    """A process that imports every module of the port and runs a small
+    `asv --device cpu` loads neither jax nor savont_tpu."""
+    fq = _workload(tmp_path, n_reads=12)
     code = (
-        "import sys\n"
-        "import savont_tpu_torch, savont_tpu_torch.cli, savont_tpu_torch.pipeline.asv, "
-        "savont_tpu_torch.ops.align_batch\n"
-        "print('jax' in sys.modules)\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import savont_tpu_torch\n"
+        "for m in pkgutil.walk_packages(savont_tpu_torch.__path__, 'savont_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "from savont_tpu_torch.cli import main\n"
+        f"rc = main(['--log-level', 'error', 'asv', {str(fq)!r}, '-o', {str(tmp_path / 'out')!r},"
+        " '--device', 'cpu', '-t', '2', '--min-cluster-size', '5'])\n"
+        "print(json.dumps([rc, sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'savont_tpu'))]))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "False"
+    rc, loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rc == 0 and loaded == []
+    assert (tmp_path / "out" / "final_asvs.fasta").read_bytes().startswith(b">")
 
 
 def test_kernels_raise_without_fallback(no_card, monkeypatch, tmp_path):
@@ -139,4 +101,3 @@ def test_cli_cuda_without_card_raises(no_card, tmp_path):
     fq.write_text("@r\nACGT\n+\nIIII\n")
     with pytest.raises(RuntimeError, match="cuda"):
         main(["asv", str(fq), "-o", str(tmp_path / "out"), "--device", "cuda"])
-    assert not hasattr(host_ab.run_jobs, "func")
