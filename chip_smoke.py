@@ -17,19 +17,28 @@ failure; nothing catches it, so the exit code is non-zero):
                  batch.  Kernel 1 (NM and payload modes) and kernel 2 must
                  equal their plain PyTorch versions on the card, and the
                  port's job routes the port's host oracle, CIGARs included;
-                 the three roofline kernels must equal their plain versions.
-                 Tolerance 0 throughout: every output is an integer;
-  4. roofline  - the integer roofline probe's timed runs
-                 (savont_tpu_torch.probes.roofline.measure): the card's
-                 int32 max/add rate, which bounds kernel 1;
+                 the three roofline kernels and the eleven kernels of the
+                 bitcast, i16ops and roll probes must equal their plain
+                 versions (bitcast: formula A is the roll by 1, formula B is
+                 not).  Tolerance 0 throughout: every output is an integer;
+  4. probes    - the timed runs of the integer roofline probe
+                 (savont_tpu_torch.probes.roofline.measure: the card's int32
+                 max/add rate, which bounds kernel 1) and of the bitcast,
+                 i16ops and roll probes; the outputs of the timed launches
+                 must equal their plain versions' too, at tolerance 0;
   5. main path - a seed-pinned 5,000-read fastq through
                  `savont_tpu_torch.cli.main(["asv", ..., "--device", "cuda"])`
-                 (what `python -m savont_tpu_torch` runs), once untimed and
-                 once timed: the outputs must equal the sha256 digests pinned
-                 below (those of the JAX package's host run on the same
-                 reads; tests/test_torch_chip_smoke.py holds them to it),
-                 every ASV must be at NM=0 against the templates, every
-                 kernel launched and no plain version called.
+                 (what `python -m savont_tpu_torch` runs) with the default
+                 routes, the device routes of stages 4 and 7, once untimed
+                 and once timed: the outputs must equal the sha256 digests
+                 pinned below (those of the JAX package's host run on the
+                 same reads; tests/test_torch_chip_smoke.py holds them to
+                 it), every ASV must be at NM=0 against the templates,
+                 kernels 1 (both modes) and 2 launched by the device routes,
+                 no plain version called, no job handed to the per-job
+                 consumers, the device EM within 1e-4 of the host EM.  Then
+                 the earlier path, `--stage4-backend host --stage7-backend
+                 host`, on a 1,500-read sample, held to its own digests.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
@@ -50,6 +59,8 @@ BAND = 48
 OPERON_BAND = 128
 N_PAIRS_MIN = 2048
 N_READS = 5000
+N_READS_SMALL = 1500   # the host-routes run
+EM_TOLERANCE = 1e-4    # device float32 EM against the host float64 EM, absolute
 TEMPLATE_LEN = 1450
 SEED = 2026
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -67,6 +78,12 @@ DIGESTS = {
     "feature-table.tsv": "5508ec928bf4106aaece7efe0c686abb5f30c8a15b0f37c7d911f85ae37a5463",
     "temp/read_to_asv_mappings.tsv": "edaf681418d63f60bc88d8e4ad7bd85924beff57901ca6380f76d987525944cd",
 }
+# the same for the host-routes run on write_reads' N_READS_SMALL sample
+DIGESTS_SMALL = {
+    "final_asvs.fasta": "87c981361e01054f4f74012e3e1c1808167b483b298564ae9379372e21d7441b",
+    "feature-table.tsv": "1c1b7107daedd81a76a11857b552dd88f050805814caa756762c6e5b96114499",
+    "temp/read_to_asv_mappings.tsv": "6897ce9c6e927edd0e732e75e67263db6364f216e283caabb7e2e70a9c12a2e2",
+}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_forward_nm": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
     "sw_forward_payload": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
@@ -74,6 +91,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "roofline_peak": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:43"),
     "roofline_ilp": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:59"),
     "roofline_swar": ("savont_tpu_torch/ops/csrc/roofline.cu", "scripts/pallas_roofline.py:87"),
+    "probe_bitcast": ("savont_tpu_torch/ops/csrc/probe_bitcast.cu", "scripts/pallas_probe_bitcast.py:24"),
+    **{f"probe_i16_{op}": ("savont_tpu_torch/ops/csrc/probe_i16ops.cu",
+                           f"scripts/pallas_probe_i16ops.py:{line}")
+       for op, line in (("max", 44), ("lt", 45), ("eq", 46), ("select", 47), ("sra15", 48),
+                        ("bitsel", 49), ("dpx", 22))},
+    **{f"probe_roll_{mode}": ("savont_tpu_torch/ops/csrc/probe_roll.cu", "scripts/pallas_probe_roll.py:25")
+       for mode in ("add", "shfl", "smem")},
 }
 
 
@@ -283,8 +307,8 @@ def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
     return out
 
 
-def write_reads(path: Path, tpl_path: Path, rng) -> None:
-    """5,000 ONT-like reads from 10 templates (5 random, 5 variants with 4-6
+def write_reads(path: Path, tpl_path: Path, rng, n_reads: int = N_READS) -> None:
+    """n_reads ONT-like reads from 10 templates (5 random, 5 variants with 4-6
     SNPs): 1.5% substitutions each, 30% with a 1-2 bp deletion, 10% with a
     2-6 bp deletion, 2% with a 50 bp deletion, half reverse-complemented."""
     import numpy as np
@@ -304,7 +328,7 @@ def write_reads(path: Path, tpl_path: Path, rng) -> None:
         for i, t in enumerate(templates):
             f.write(f">template{i}\n{t.decode()}\n")
     with gzip.open(path, "wt") as out:
-        for i in range(N_READS):
+        for i in range(n_reads):
             ti = i % len(templates)
             b = np.frombuffer(templates[ti], dtype=np.uint8).copy()
             nsub = rng.binomial(len(b), 0.015)
@@ -335,49 +359,91 @@ def output_digests(out_dir: Path) -> dict[str, str]:
     return {rel: hashlib.sha256((out_dir / rel).read_bytes()).hexdigest() for rel in DIGESTS}
 
 
+def small_sample_rng():
+    """The generator in the state the host-routes sample starts from: after
+    the main sample's draws."""
+    rng = main_path_rng()
+    with tempfile.TemporaryDirectory() as d:
+        write_reads(Path(d) / "reads.fq.gz", Path(d) / "templates.fa", rng)
+    return rng
+
+
 def main_path(work: Path, rng) -> dict:
     from savont_tpu_torch import cli
     from savont_tpu_torch.ops import align_batch
     from savont_tpu_torch.ops.align_torch import LAUNCHES, REFERENCE_CALLS, reset_counters
+    from savont_tpu_torch.parallel.mesh import ROUTE_STATS, reset_route_stats
+    from savont_tpu_torch.pipeline.asv import STAGE_SECONDS
     from savont_tpu_torch.validate import validate_asvs
 
-    fq = work / "reads.fq.gz"
-    tpl = work / "templates.fa"
-    write_reads(fq, tpl, rng)
-
-    def run(tag: str) -> float:
+    def run(fq: Path, tag: str, *routes: str) -> dict:
+        """One CLI run with every count set to 0 just before it; what it
+        counted, read just after."""
+        reset_counters()
+        reset_route_stats()
+        for k in align_batch.ROUTE_SECONDS:
+            align_batch.ROUTE_SECONDS[k] = 0.0
         t0 = time.perf_counter()
         rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(work / tag),
-                       "--device", "cuda", "-t", "4"])
+                       "--device", "cuda", "-t", "4", *routes])
+        wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"savont_tpu_torch asv exited {rc}")
-        return time.perf_counter() - t0
+        return {"wall_s": wall, "launches": dict(LAUNCHES), "plain_calls": dict(REFERENCE_CALLS),
+                "routes": {k: dict(v) for k, v in ROUTE_STATS.items()},
+                "per_job_route_s": dict(align_batch.ROUTE_SECONDS),
+                "stage_s": {k: round(v, 3) for k, v in STAGE_SECONDS.items()}}
 
-    warm_s = run("warmup")  # first run in the process: untimed
-    reset_counters()
-    for k in align_batch.ROUTE_SECONDS:
-        align_batch.ROUTE_SECONDS[k] = 0.0
-    port_s = run("port")
-    launches, ref_calls = dict(LAUNCHES), dict(REFERENCE_CALLS)
-    dp_s = sum(align_batch.ROUTE_SECONDS.values())
+    def held(tag: str, tpl: Path, digests: dict, r: dict) -> int:
+        got = output_digests(work / tag)
+        if got != digests:
+            raise AssertionError(f"{tag}: outputs differ from the pinned digests of the host run: {got}")
+        val = validate_asvs(str(work / tag / "final_asvs.fasta"), str(tpl))
+        if not val or any(v.nm != 0 for v in val):
+            raise AssertionError(f"{tag}: ASVs not all NM=0 against the templates: {val}")
+        for k in ("sw_forward_nm", "sw_forward_payload", "sw_walk"):
+            if r["launches"][k] <= 0:
+                raise AssertionError(f"{tag}: kernel {k} was not launched: {r['launches']}")
+        if any(r["plain_calls"].values()):
+            raise AssertionError(f"{tag}: plain versions ran during the card run: {r['plain_calls']}")
+        return len(val)
 
-    got = output_digests(work / "port")
-    if got != DIGESTS:
-        raise AssertionError(f"outputs differ from the pinned digests of the host run: {got}")
-    val = validate_asvs(str(work / "port" / "final_asvs.fasta"), str(tpl))
-    if not val or any(v.nm != 0 for v in val):
-        raise AssertionError(f"ASVs not all NM=0 against the templates: {val}")
-    for k in ("sw_forward_nm", "sw_forward_payload", "sw_walk"):
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path: {launches}")
-    if any(ref_calls.values()):
-        raise AssertionError(f"plain versions ran during the card run: {ref_calls}")
-    log(f"main path: {N_READS} reads, {len(val)} ASVs all NM=0, outputs equal the host "
-        f"run's pinned digests; savont_tpu_torch asv --device cuda {port_s:.2f} s warm "
-        f"(first run {warm_s:.2f} s; wall, kernel build excluded; {dp_s:.2f} s of it inside "
-        f"the DP routes {dict(align_batch.ROUTE_SECONDS)}); launches {launches}; "
-        f"plain calls {ref_calls}")
-    return {"launches": launches, "port_s": port_s, "n_asvs": len(val)}
+    # the default routes: the device routes of stages 4 and 7, at full width
+    fq, tpl = work / "reads.fq.gz", work / "templates.fa"
+    write_reads(fq, tpl, rng)
+    warm = run(fq, "warmup")  # first run in the process: untimed
+    mesh = run(fq, "mesh")
+    n_asvs = held("mesh", tpl, DIGESTS, mesh)
+    s4, s7 = mesh["routes"]["stage4"], mesh["routes"]["stage7"]
+    # stage 4 piles up at most 250 reads per consensus, stage 7 aligns every
+    # read to its candidate ASVs
+    if s4["calls"] < 1 or s7["calls"] < 1 or s4["jobs"] < N_READS // 2 or s7["jobs"] < N_READS // 2:
+        raise AssertionError(f"the device routes did not carry the sample: {mesh['routes']}")
+    if s4["fallbacks"] or s7["fallbacks"]:
+        raise AssertionError(f"the flat planner declined work on the sample: {mesh['routes']}")
+    if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
+        raise AssertionError(f"device EM differs from the host EM by {s7['em_max_abs_diff']}")
+    log(f"main path (device routes): {N_READS} reads, {n_asvs} ASVs all NM=0, outputs equal the "
+        f"host run's pinned digests; savont_tpu_torch asv --device cuda {mesh['wall_s']:.2f} s warm "
+        f"(first run {warm['wall_s']:.2f} s; wall, kernel build excluded); launches "
+        f"{mesh['launches']}; plain calls {mesh['plain_calls']}")
+    log(f"  stage seconds {mesh['stage_s']}; device routes {json.dumps(mesh['routes'])}; "
+        f"per-job routes {mesh['per_job_route_s']}; {s4['overflow']} pairs overflowed kernel 2 "
+        f"and were counted on the host; EM {s7['em_iters']} iterations, max |host - device| "
+        f"{s7['em_max_abs_diff']:.3e} (tolerance {EM_TOLERANCE})")
+
+    # the earlier path: the per-job routes, on a smaller sample
+    fq_s, tpl_s = work / "small" / "reads.fq.gz", work / "small" / "templates.fa"
+    fq_s.parent.mkdir()
+    write_reads(fq_s, tpl_s, rng, N_READS_SMALL)
+    host = run(fq_s, "host", "--stage4-backend", "host", "--stage7-backend", "host")
+    n_small = held("host", tpl_s, DIGESTS_SMALL, host)
+    if any(v["calls"] for v in host["routes"].values()):
+        raise AssertionError(f"the host-routes run entered the device routes: {host['routes']}")
+    log(f"earlier path (per-job routes): {N_READS_SMALL} reads, {n_small} ASVs all NM=0, outputs "
+        f"equal their pinned digests; {host['wall_s']:.2f} s; launches {host['launches']}")
+    log(f"  stage seconds {host['stage_s']}; per-job routes {host['per_job_route_s']}")
+    return {"launches": mesh["launches"], "port_s": mesh["wall_s"], "n_asvs": n_asvs}
 
 
 def main() -> int:
@@ -428,11 +494,29 @@ def main() -> int:
     if any(roof_err.values()):
         raise AssertionError(f"roofline kernels differ from their plain versions: {roof_err}")
     log(f"  roofline kernels == plain (exact, {roofline.CHECK_ITERS} iterations): {roof_err}")
+    from savont_tpu_torch.probes import bitcast, i16ops, roll
 
-    # phase 4: the roofline probe
+    bc = bitcast.check()
+    if bc["max_abs_err"] or not (bc["even_ok"] and bc["formula_a_ok"]) or bc["formula_b_ok"]:
+        raise AssertionError(f"bitcast probe: expected exact, formula A right, B wrong: {bc}")
+    probe_err = {"probe_bitcast": bc["max_abs_err"],
+                 **{f"probe_i16_{k}": v for k, v in i16ops.check().items()},
+                 **{f"probe_roll_{k}": v for k, v in roll.check().items()}}
+    if any(probe_err.values()):
+        raise AssertionError(f"probe kernels differ from their plain versions: {probe_err}")
+    log(f"  probe kernels == plain (exact): {probe_err}; bitcast word roll is the roll by 2 "
+        f"{bc['even_ok']}, formula A is the roll by 1 {bc['formula_a_ok']}, formula B "
+        f"{bc['formula_b_ok']}")
+
+    # phase 4: the probes' timed runs
     roofline.reset_counters()
     roof = roofline.measure()
     roof_launches = dict(roofline.LAUNCHES)
+    # the outputs of the timed launches, held to the plain version's too
+    roof_err = {k: max(v, roof[k]["max_abs_err"]) for k, v in roof_err.items()}
+    if any(roof_err.values()):
+        raise AssertionError(f"roofline kernels differ from their plain versions at "
+                             f"{roofline.PLAIN_ITERS} iterations: {roof_err}")
     for name, n in roof_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the probe: {roof_launches}")
@@ -445,6 +529,43 @@ def main() -> int:
         f"{roof['published_dispatch_tops']:.3f} T instructions/s published dispatch rate "
         f"({roof['sms']} SMs x {roofline.DISPATCH_LANES_PER_SM} x max SM clock); "
         f"launches {roof_launches}")
+
+    for mod in (bitcast, i16ops, roll):
+        mod.reset_counters()
+    bitcast_m = bitcast.measure()
+    probe = {"probe_bitcast": bitcast_m["card"]}
+    i16 = i16ops.measure()
+    rl = roll.measure()
+    probe.update({f"probe_i16_{k}": i16[k]["card"] for k in i16ops.OPS})
+    probe.update({f"probe_roll_{k}": rl["card"][k] for k in roll.MODES})
+    probe_launches = {**bitcast.LAUNCHES, **i16ops.LAUNCHES, **roll.LAUNCHES}
+    # the outputs of the timed launches (2,048 tiles; 66 tiles x 2,000 steps)
+    # and of the one-tile ones, held to the plain version's too
+    timed_err = {"probe_bitcast": max(r["max_abs_err"] for r in bitcast_m.values()),
+                 **{f"probe_i16_{k}": max(i16[k][w]["max_abs_err"] for w in ("tile", "card"))
+                    for k in i16ops.OPS},
+                 **{f"probe_roll_{k}": max(rl[w][k]["max_abs_err"] for w in ("tile", "card"))
+                    for k in roll.MODES}}
+    probe_err = {k: max(v, timed_err[k]) for k, v in probe_err.items()}
+    if any(probe_err.values()):
+        raise AssertionError(f"probe kernels differ from their plain versions at the timed "
+                             f"shapes: {probe_err}")
+    for name, n in probe_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by its probe: {probe_launches}")
+    log(f"  bitcast: {json.dumps(probe['probe_bitcast'])}")
+    for k in i16ops.OPS:
+        log(f"  i16 {k}: chain {i16[k]['chain']['tops']:.3f} T ops/s "
+            f"({i16[k]['chain']['tvalues']:.3f} T values/s); elementwise, {i16ops.CARD_TILES} tiles: "
+            f"{json.dumps(i16[k]['card'])}; one tile {i16[k]['tile']['ms']:.4f} ms")
+    for where in ("tile", "card"):
+        log(f"  roll, {roll.STEPS} steps, {where}: " + "; ".join(
+            f"{m} {rl[where][m]['us_per_step']:.4f} us/step" for m in roll.MODES)
+            + "; roll over add: " + ", ".join(
+            f"{m} {rl[where][m]['roll_cost_us']:.4f} us" for m in roll.MODES[1:])
+            + f"; torch.add, the library call of add, {rl[where]['add']['library_ms']:.4f} ms; "
+            f"torch.roll alone (no single call computes roll + N) "
+            f"{rl[where]['shfl']['torch_roll_ms']:.4f} ms")
 
     # phase 5: the main path
     work = Path(tempfile.mkdtemp(prefix="savont_chip_smoke_"))
@@ -461,14 +582,20 @@ def main() -> int:
             entry = {"launches": roof_launches[name], "max_abs_err": roof_err[name.removeprefix("roofline_")],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"]}
+        elif name.startswith("probe_"):
+            r = probe[name]
+            entry = {"launches": probe_launches[name], "max_abs_err": probe_err[name],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         else:
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
                      "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"]}
         # no single PyTorch call computes a banded Smith-Waterman, its
-        # traceback walk, or a dependent max/add chain
+        # traceback walk, or a dependent max/add chain; the probes time the
+        # one call that computes their function where there is one
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        **entry, "library_ms": None})
+                        "library_ms": None, **entry})
     log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
         f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")
     log(nvidia_smi_line())

@@ -1,6 +1,7 @@
 """Command-line interface of the port: `python -m savont_tpu_torch asv ...`.
 
-The `asv` flags mirror the reference CLI (cli.rs), plus `--device`.  Only
+The `asv` flags mirror the reference CLI (cli.rs), plus `--device` and the
+route flags `--stage4-backend` / `--stage7-backend`.  Only
 `asv` is ported: `classify`, `sintax`, `download`, `export` and `--profile`
 exit 2.
 """
@@ -90,6 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="where the DP kernels run (default cuda; cuda fails when no card "
         "is visible, cpu runs their plain PyTorch versions)",
     )
+    for stage, what in ((4, "pileups"), (7, "tie-break and EM")):
+        a.add_argument(
+            f"--stage{stage}-backend", choices=["mesh", "host"], default="mesh",
+            help=f"route of the stage-{stage} {what}: mesh (default) keeps the whole step on "
+            "the device, host takes the per-job route with its host-side reduction; "
+            "same outputs",
+        )
     for name in ("classify", "sintax", "download", "export"):
         sub.add_parser(name, help=NOT_PORTED, add_help=False)
     return p

@@ -45,6 +45,18 @@ class ClusterArgs:
     # where the DP kernels of stages 4-7 run: "cuda" (the card; raises when
     # none is visible) or "cpu" (their plain PyTorch versions)
     device: str = "cuda"
+    # the routes of the stage-4 pileups and the stage-7 tie-break + EM:
+    # "mesh", the all-device routes of parallel/mesh.py (flat plan, kernels,
+    # scatter / tie sets / EM on the device), or "host", the per-job
+    # consumers with the count scatter and the tie sets on the host.  Both
+    # run their alignments on `device` and give the same outputs
+    stage4_backend: str = "mesh"
+    stage7_backend: str = "mesh"
+
+    def __post_init__(self) -> None:
+        for name in ("stage4_backend", "stage7_backend"):
+            if getattr(self, name) not in ("mesh", "host"):
+                raise ValueError(f"{name} must be 'mesh' or 'host', got {getattr(self, name)!r}")
 
     def apply_presets(self) -> None:
         """main.rs:459-468."""

@@ -395,6 +395,146 @@ def plan_jobs_batch(
     return jobs, owners
 
 
+def _plan_soa_indexed(
+    qry_bytes: list[bytes], tgt_bytes: list[bytes],
+    job_uq_arr: np.ndarray, job_ti_arr: np.ndarray,
+    band: int | None, min_anchors: int = 2,
+):
+    """Struct-of-arrays planning (minimizers -> anchors -> chains -> band
+    corridors) for indexed jobs: input job k aligns qry_bytes[job_uq_arr[k]]
+    against tgt_bytes[job_ti_arr[k]].  The flat plan the device routes of
+    stages 4 and 7 (parallel/mesh.py) pack their kernel tensors from, with
+    no per-job Python object.  Returns None when the inputs lie outside the
+    packed key widths (the caller takes the per-job consumers), the string
+    "empty" when no job yields a chain, else the flat plan tuple
+      (owner_j, uq_j, st_j, tid_j, q_cat, q_off_j, q_lens_j,
+       t_cat, t_off_j, t_lens_j, lo_flat, lo_off_j, qlens_all, band)
+    where job k of the plan aligns oriented query codes
+    q_cat[q_off_j[k] : q_off_j[k]+q_lens_j[k]] against target codes
+    t_cat[t_off_j[k] : ...] inside the corridor lo_flat[lo_off_j[k] : ...],
+    and owner_j[k] is the input job index it belongs to.  Plan order is the
+    per-pair order (pair ascending, strand - then +), so earliest-job
+    tie-breaks match align_pairs / align_pairs_nm exactly."""
+    from .align import window_minimizers_flat_batch
+    from .kmers_native import (
+        anchor_keys_indexed_native,
+        chain_band_native,
+        get_scan_lib,
+        get_sort_lib,
+    )
+
+    band = resolve_band(band)
+    n_pairs = len(job_uq_arr)
+    if get_scan_lib() is None or get_sort_lib() is None or not n_pairs:
+        return None
+    if n_pairs >= (1 << 21):
+        return None  # job id field: key bits 43..63
+    qlens_all = np.fromiter((len(q) for q in qry_bytes), np.int64, len(qry_bytes))
+    tlens_all = np.fromiter((len(t) for t in tgt_bytes), np.int64, len(tgt_bytes))
+    max_qlen = int(qlens_all.max()) if len(qlens_all) else 0
+    max_tlen = int(tlens_all.max()) if len(tlens_all) else 0
+    if max_qlen >= (1 << 14) + 15 or max_tlen >= (1 << 14):
+        return None  # packed anchor key field widths
+
+    # one minimizer pass over unique queries, straight into flat pools; one
+    # single-target index each (all target scans batched in one native call)
+    pool_h, pool_p, pool_f, q_moff = window_minimizers_flat_batch(qry_bytes, 10, 15)
+    indexes = TargetIndex.build_singletons(tgt_bytes)
+
+    # concatenated per-target tables (singleton tables carry tid = 0, so the
+    # packed keys' tid field stays 0 and group identity lives in the job id)
+    tab_off = np.zeros(len(indexes) + 1, dtype=np.int64)
+    np.cumsum([len(ix.h_sorted) for ix in indexes], out=tab_off[1:])
+    h_cat = np.concatenate([ix.h_sorted for ix in indexes]) if indexes else np.zeros(0, np.uint64)
+    tpos_cat = np.concatenate([ix.h_tpos for ix in indexes]) if indexes else np.zeros(0, np.int32)
+    isf_cat = np.concatenate([ix.h_isf for ix in indexes]) if indexes else np.zeros(0, bool)
+
+    if int(q_moff[-1]) == 0:
+        return "empty"
+    # fused indexed anchor planning: job j probes its unique query's pooled
+    # minimizers against its target table and emits packed sorted keys
+    # directly.  Sorted keys have the job id in the top bits, so key runs
+    # appear in ascending pair order (within a pair: strand - then +)
+    keys = anchor_keys_indexed_native(
+        h_cat, tab_off, pool_h, pool_p, pool_f, q_moff,
+        job_uq_arr, job_ti_arr, qlens_all, tpos_cat, isf_cat,
+        indexes[0].k if indexes else 15, threads=4,
+    )
+    if keys is None:
+        return None
+    if len(keys) == 0:
+        return "empty"
+    hi_bits = keys >> np.uint64(28)
+    bounds = np.flatnonzero(np.concatenate(([True], hi_bits[1:] != hi_bits[:-1])))
+    sizes_all = np.diff(np.append(bounds, len(keys)))
+    kb = keys[bounds]
+    g_job = (kb >> np.uint64(29)).astype(np.int64)
+    qa_all = ((keys >> np.uint64(14)) & np.uint64(0x3FFF)).astype(np.int64)
+    ta_all = (keys & np.uint64(0x3FFF)).astype(np.int64)
+    grp_off = np.zeros(len(sizes_all) + 1, dtype=np.int64)
+    np.cumsum(sizes_all, out=grp_off[1:])
+    uq_g = job_uq_arr[g_job]
+    st_g = np.where((kb >> np.uint64(28)) & np.uint64(1), 1, -1).astype(np.int8)
+    tid_g = job_ti_arr[g_job]
+
+    # one chaining/band-planning pass over every (pair, strand) group
+    lo_flat, lo_off_g, nchain = chain_band_native(
+        qa_all, ta_all, grp_off, qlens_all[uq_g], tlens_all[tid_g], band, min_anchors
+    )
+    kept = np.flatnonzero(nchain >= min_anchors)
+    if len(kept) == 0:
+        return "empty"
+
+    owner_j = g_job[kept]
+    uq_j = uq_g[kept]
+    st_j = st_g[kept]
+    tid_j = tid_g[kept]
+    q_lens_j = qlens_all[uq_j].astype(np.int32)
+    lo_off_j = lo_off_g[kept]
+
+    # code pools: encode each used (query, strand) / target exactly once.
+    # combo ids are dense (< 2 * n_queries), so a flag + rank table gives
+    # unique/inverse in O(n + nq) instead of np.unique's sort
+    combo = uq_j * 2 + (st_j == 1)
+    flags = np.zeros(2 * len(qry_bytes), dtype=bool)
+    flags[combo] = True
+    ucombo = np.flatnonzero(flags)
+    rank = np.cumsum(flags) - 1
+    inv = rank[combo]
+    combo_codes = _qcodes_cached_batch(
+        [(qry_bytes[cb >> 1], 1 if cb & 1 else -1) for cb in ucombo.tolist()]
+    )
+    combo_lens = np.fromiter((len(c) for c in combo_codes), np.int64, len(combo_codes))
+    combo_off = np.zeros(len(combo_codes) + 1, dtype=np.int64)
+    np.cumsum(combo_lens, out=combo_off[1:])
+    q_cat = np.concatenate(combo_codes) if combo_codes else np.zeros(0, np.uint8)
+    q_off_j = combo_off[inv]
+
+    t_codes = [idx.targets[0] for idx in indexes]
+    t_off_all = np.zeros(len(t_codes) + 1, dtype=np.int64)
+    np.cumsum(tlens_all, out=t_off_all[1:])  # codes are 1:1 with target bytes
+    t_cat = np.concatenate(t_codes) if t_codes else np.zeros(0, np.uint8)
+    t_off_j = t_off_all[tid_j]
+    t_lens_j = tlens_all[tid_j].astype(np.int32)
+    return (
+        owner_j, uq_j, st_j, tid_j, q_cat, q_off_j, q_lens_j,
+        t_cat, t_off_j, t_lens_j, lo_flat, lo_off_j, qlens_all, band,
+    )
+
+
+def plan_job(plan: tuple, k: int) -> AlignJob:
+    """Job k of a _plan_soa_indexed plan as an AlignJob (for the few jobs a
+    device route hands to the host oracle)."""
+    (_owner_j, uq_j, st_j, tid_j, q_cat, q_off_j, q_lens_j,
+     t_cat, t_off_j, t_lens_j, lo_flat, lo_off_j, qlens_all, _band) = plan
+    n = int(q_lens_j[k])
+    qo, to, lo_o = int(q_off_j[k]), int(t_off_j[k]), int(lo_off_j[k])
+    return AlignJob(
+        q_cat[qo : qo + n], t_cat[to : to + int(t_lens_j[k])], lo_flat[lo_o : lo_o + n],
+        int(tid_j[k]), int(st_j[k]), int(qlens_all[uq_j[k]]),
+    )
+
+
 # wall seconds spent inside the routes (packing, kernels, copies back to
 # the host): what the card path costs of a whole run
 ROUTE_SECONDS = {"run_jobs": 0.0, "run_jobs_nm": 0.0}

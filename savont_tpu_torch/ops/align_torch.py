@@ -67,21 +67,84 @@ def length_chunks(jobs, band: int, payload: bool) -> list[list[int]]:
     """Job indices sorted by query length and cut into launches: at most
     PAIRS_PER_LAUNCH pairs and, with a payload, at most PAYLOAD_BYTES of
     (pairs x padded Lq x band) bytes.  Chunking changes only padding."""
-    order = sorted(range(len(jobs)), key=lambda i: len(jobs[i].qcodes))
-    chunks: list[list[int]] = []
-    cur: list[int] = []
-    for i in order:
-        lq = len(jobs[i].qcodes)  # the longest so far: lengths ascend
-        if cur and (
-            len(cur) >= PAIRS_PER_LAUNCH
-            or (payload and (len(cur) + 1) * lq * band > PAYLOAD_BYTES)
-        ):
-            chunks.append(cur)
-            cur = []
-        cur.append(i)
-    if cur:
-        chunks.append(cur)
+    lens = np.fromiter((len(j.qcodes) for j in jobs), np.int64, len(jobs))
+    return [c.tolist() for c in length_chunks_lens(lens, band, payload)]
+
+
+def length_chunks_lens(lens: np.ndarray, band: int, payload: bool,
+                       group: np.ndarray | None = None) -> list[np.ndarray]:
+    """length_chunks on an array of query lengths (a flat plan's q_lens_j).
+    With `group` (non-decreasing ids, every group of one length) no launch
+    boundary falls inside a group, so the jobs of one pair stay together."""
+    order = np.argsort(lens, kind="stable")
+    ls = lens[order]
+    gs = group[order] if group is not None else None
+    chunks: list[np.ndarray] = []
+    start = 0
+    for i in range(1, len(order)):
+        full = i - start >= PAIRS_PER_LAUNCH or (
+            payload and (i - start + 1) * int(ls[i]) * band > PAYLOAD_BYTES)
+        if full and (gs is None or gs[i] != gs[i - 1]):
+            chunks.append(order[start:i])
+            start = i
+    if len(order) > start:
+        chunks.append(order[start:])
     return chunks
+
+
+def gather_rows(pool: torch.Tensor, off: torch.Tensor, lens: torch.Tensor, width: int,
+                fill: int, *, first: int = 0, reverse: torch.Tensor | None = None,
+                extend: bool = False) -> torch.Tensor:
+    """Padded int32 rows (B, width) gathered on the pool's device from a flat
+    pool: row i, column first + c holds pool[off[i] + c] for c < lens[i],
+    read backward from the row's end where reverse[i].  Other columns hold
+    `fill`, or with `extend` the row's
+    nearest value (its first value before `first`, its last one past the
+    end: the flat extension of a corridor).  The vectorised counterpart of
+    jobs_to_tensors' per-job loop."""
+    n = lens[:, None]
+    c = torch.arange(width, device=pool.device)[None, :] - first
+    inside = (c >= 0) & (c < n)
+    if extend:
+        c = torch.minimum(c.clamp(min=0), (n - 1).clamp(min=0))
+        inside = n > 0
+    if reverse is not None:
+        c = torch.where(reverse[:, None], n - 1 - c, c)
+    vals = pool[(off[:, None] + c).clamp(0, max(pool.numel() - 1, 0))]
+    return torch.where(inside, vals.to(torch.int32), fill).contiguous()
+
+
+def plan_to_device(plan: tuple, t_pool: np.ndarray, tlens_pool: np.ndarray, device) -> dict:
+    """The arrays of a flat plan (align_batch._plan_soa_indexed) that kernel
+    1's tensors are packed from, and the padded target pool, on `device`."""
+    (_owner_j, _uq_j, _st_j, tid_j, q_cat, q_off_j, q_lens_j,
+     _t_cat, _t_off_j, _t_lens_j, lo_flat, lo_off_j, _qlens_all, _band) = plan
+    dev = resolve_device(device)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    return {
+        "q_cat": up(q_cat, np.uint8), "lo_flat": up(lo_flat, np.int32),
+        "q_off": up(q_off_j, np.int64), "q_lens": up(q_lens_j, np.int64),
+        "lo_off": up(lo_off_j, np.int64), "tid": up(tid_j, np.int64),
+        "t_pool": up(t_pool, np.int32), "tlens_pool": up(tlens_pool, np.int32),
+    }
+
+
+def plan_tensors(dp: dict, sel: torch.Tensor, q: torch.Tensor | None = None):
+    """Kernel 1's (q, t, lo, tlens) for the plan jobs `sel` (int64, on the
+    device) of plan_to_device's dict, with jobs_to_tensors' conventions:
+    query padding 5, lo[:, 0] = lo[:, 1], the last lo extended flat; t and
+    tlens are gathered from the target pool by the jobs' target ids.  `q`
+    replaces the plan's own query codes (stage 4 packs raw-byte codes)."""
+    lens = dp["q_lens"][sel]
+    Lq = int(lens.max())
+    if q is None:
+        q = gather_rows(dp["q_cat"], dp["q_off"][sel], lens, Lq, 5)
+    lo = gather_rows(dp["lo_flat"], dp["lo_off"][sel], lens, Lq + 1, 0, first=1, extend=True)
+    tid = dp["tid"][sel]
+    return q, dp["t_pool"][tid].contiguous(), lo, dp["tlens_pool"][tid].contiguous()
 
 
 def _check_forward_inputs(q, t, lo, tlens, band: int) -> None:

@@ -60,6 +60,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, p, p, p,            # kind, x0, y0, out
         i, i, i, p,            # n, iters, threads, stream
     ]
+    lib.probe_bitcast_launch.restype = i
+    lib.probe_bitcast_launch.argtypes = [p, p, i, p]  # x, out, tiles, stream
+    lib.probe_i16ops_launch.restype = i
+    lib.probe_i16ops_launch.argtypes = [
+        i, p, p, p, p,         # op, x, y, z, out
+        i, i, i, p,            # n, iters, threads, stream
+    ]
+    lib.probe_roll_launch.restype = i
+    lib.probe_roll_launch.argtypes = [i, p, p, i, i, p]  # mode, x, out, tiles, steps, stream
 
 
 def _compile(srcs: list[Path], so: Path) -> str:

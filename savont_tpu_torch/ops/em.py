@@ -16,12 +16,17 @@ bincounts.  np.bincount accumulates sequentially in row order, so with rows
 enumerated group-major (the dict iteration order) the result is
 BIT-IDENTICAL to the reference-shaped Python loop — tests/test_em.py pins
 that.
+
+`em_abundances_torch` is the same fixed point in float32 on a torch device
+(index_add_ + a Python loop) for the device route of stage 7; it converges
+to the same answer but is not bit-pinned: float32 index_add_ on a CUDA
+device adds in no fixed order.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["em_abundances", "groups_to_rows"]
+__all__ = ["em_abundances", "em_abundances_torch", "groups_to_rows"]
 
 
 def groups_to_rows(groups) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -73,3 +78,42 @@ def em_abundances(
             break
     return abund
 
+
+
+def em_abundances_torch(
+    group_ids,
+    item_ids,
+    group_weights,
+    n_items: int,
+    total: float,
+    conv: float,
+    max_iter: int,
+    stats: dict | None = None,
+):
+    """The EM fixed point of em_abundances in float32 on the device of
+    `group_ids` (int64 tensors group_ids, item_ids; float32 group_weights):
+    the counterpart of the JAX package's em_abundances_jax.  Its while_loop
+    is a Python loop here, and reading the change each iteration waits for
+    the device.  Returns the (n_items,) float32 abundances; `stats`, when
+    given, receives the iteration count under "iters"."""
+    import torch
+
+    dev = group_ids.device
+    n_groups = group_weights.shape[0]
+    w_row = group_weights[group_ids]
+    abund = torch.full((n_items,), 1.0 / n_items, dtype=torch.float32, device=dev)
+    it, change = 0, float("inf")
+    while it < max_iter and change >= conv:
+        a_row = abund[item_ids]
+        denom = torch.zeros(n_groups, dtype=torch.float32, device=dev).index_add_(0, group_ids, a_row)
+        d_row = denom[group_ids]
+        safe = d_row > 0
+        contrib = torch.where(safe, w_row * a_row / torch.where(safe, d_row, 1.0), 0.0)
+        new = torch.zeros(n_items, dtype=torch.float32, device=dev).index_add_(0, item_ids, contrib)
+        new = torch.where(new.sum() > 0, new / total, new)
+        change = float((abund - new).abs().max())
+        abund = new
+        it += 1
+    if stats is not None:
+        stats["iters"] = it
+    return abund

@@ -1,0 +1,395 @@
+"""The all-device routes of stages 4 and 7, on one device.
+
+Counterparts of the JAX package's parallel/mesh.py mesh_stage4_pileups and
+mesh_stage7_tie_break (its SAVONT_STAGE4_BACKEND / SAVONT_STAGE7_BACKEND =
+mesh configuration).  Both plan their pairs with the flat planner
+(ops/align_batch._plan_soa_indexed), pack kernel 1's tensors from the flat
+plan on the device (ops/align_torch.plan_tensors) and keep what follows the
+alignment on the device too:
+
+  stage 4  kernel 1 (payload mode) + kernel 2 + the count-matrix scatter
+           (ops/pileup_torch), accumulated across launches, one fetch at
+           the end;
+  stage 7  kernel 1 (NM mode), the per-(read, ASV) winner and tie-set
+           closure, and the EM fixed point in float32 (ops/em.
+           em_abundances_torch).
+
+The reference packs (rows, slots) panels with empty slots, a shape its
+static-shape compiler needs; here the jobs stay flat rows with an owner
+index, and winners are segment reductions over the owners.  Its chunked and
+packed step variants, its corridor smoothing with the host realign, and its
+split of stage 4 by corridor jump exist for the TPU's link latency and its
+kernel's limits; kernel 1 here runs raw corridors at any jump, so each route
+has one path.  A process group over several devices is not part of it yet:
+the reference's psum over the mesh is the identity on one device.
+
+When the flat planner declines an input (None: sizes outside its packed key
+widths) a route hands the work to the per-job consumers, which launch the
+same kernels on the same device; ROUTE_STATS counts that.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..constants import EM_MAX_ITERATIONS
+from ..device import resolve_device
+from ..ops import traceback_torch
+from ..ops.align import resolve_band
+from ..ops.align_batch import _plan_soa_indexed, align_pairs_nm_values_indexed, plan_job
+from ..ops.align_torch import (
+    LAUNCHES, gather_rows, length_chunks_lens, plan_tensors, plan_to_device, sw_forward,
+)
+from ..ops.em import em_abundances_torch
+from ..ops.encode import _RC_TABLE
+from ..ops.host_dp import run_jobs_host
+from ..ops.pileup_torch import new_count_buffers, strip_sinks, sw_pileup_counts
+
+log = logging.getLogger("savont")
+
+EM_CONV = 0.01  # the fixed point stops below EM_CONV / assigned reads, as the host EM does
+
+# per route: calls, calls that fell to the per-job consumers (the planner
+# returned None), wall seconds inside, plan jobs run, and of the last call
+# the EM iterations (stage 7) and the pairs whose CIGAR overflowed kernel 2
+# and were counted on the host (stage 4); em_max_abs_diff is the largest
+# difference between the device EM's abundances and the host float64 EM's
+# (em_cross_check)
+ROUTE_STATS = {
+    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "jobs": 0, "overflow": 0},
+    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "jobs": 0, "em_iters": 0,
+               "em_max_abs_diff": 0.0},
+}
+
+
+def reset_route_stats() -> None:
+    for d in ROUTE_STATS.values():
+        for k in d:
+            d[k] = type(d[k])()
+
+
+def _ext_codes(b: bytes) -> np.ndarray:
+    """ACGT (either case) -> 0..3; every other byte keeps its value.  In the
+    DP these behave as ascii_to_align_codes' codes do (only codes < 4 can
+    match), while equal codes mean equal bases, which the pileup's is_ref
+    column needs."""
+    return _EXT_LUT[0, np.frombuffer(bytes(b), dtype=np.uint8)]
+
+
+def _ext_luts() -> np.ndarray:
+    """(2, 257) int32: row 0 maps a byte to its _ext_codes code, row 1 to the
+    code of its complement (encode.revcomp_bytes' table); index 256, the
+    padding of a gathered row, maps to the query padding code 5."""
+    fwd = np.arange(257, dtype=np.int32)
+    for ch, c in zip(b"ACGTacgt", (0, 1, 2, 3, 0, 1, 2, 3)):
+        fwd[ch] = c
+    rc = fwd[np.append(np.frombuffer(_RC_TABLE, dtype=np.uint8), 256)]
+    fwd[256] = rc[256] = 5
+    return np.stack([fwd, rc])
+
+
+_EXT_LUT = _ext_luts()
+
+
+def _build_target_pool(tgt_bytes: list[bytes], ext: bool = False):
+    """(t_pool (T, Lt) int32 padded with 6, tlens_pool (T,) int32) from the
+    unique target bytes: the pool the routes gather each job's target from
+    on the device.  Codes are ascii_to_align_codes', or with `ext` the
+    raw-byte codes of _ext_codes."""
+    from ..ops.align import ascii_to_align_codes
+
+    t_list = tgt_bytes or [b"A"]
+    Lt = max(len(tb) for tb in t_list)
+    t_pool = np.full((len(t_list), Lt), 6, dtype=np.int32)
+    for i, tb in enumerate(t_list):
+        t_pool[i, : len(tb)] = _ext_codes(tb) if ext else ascii_to_align_codes(tb)
+    tlens_pool = np.fromiter((len(tb) for tb in t_list), np.int32, len(t_list))
+    return t_pool, tlens_pool
+
+
+# ── stage 7: NM tie-break + EM ──────────────────────────────────────────────
+
+
+def stage7_tie_sets(score, nm, row_read, row_asv, n_asvs: int):
+    """Tie-set closure over flat job rows (the reference's
+    _stage7_align_local after its forward): a row is valid when its score
+    is positive; the winner of a (read, ASV) is its highest score, the
+    earliest row on ties; a read's tie set is its winners at its least NM.
+    score / nm int32 and row_read / row_asv int64 tensors of one length, in
+    plan order.  Returns in_tie (bool)."""
+    n = score.shape[0]
+    dev = score.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    valid = score > 0
+    key = score.long() * n - torch.arange(n, device=dev)
+    _, grp = torch.unique(row_read * n_asvs + row_asv, return_inverse=True)
+    lowest = torch.iinfo(torch.int64).min
+    best = torch.full((int(grp.max()) + 1,), lowest, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, grp, torch.where(valid, key, lowest), "amax", include_self=True)
+    winner = valid & (key == best[grp])
+    big = 1 << 20
+    _, rd = torch.unique(row_read, return_inverse=True)
+    nm_eff = torch.where(winner, nm.long(), big)
+    best_nm = torch.full((int(rd.max()) + 1,), big, dtype=torch.int64, device=dev)
+    best_nm.scatter_reduce_(0, rd, nm_eff, "amin", include_self=True)
+    return winner & (nm_eff == best_nm[rd])
+
+
+def stage7_em(in_tie, row_read, row_asv, n_asvs: int, em_iters: int, conv: float = EM_CONV,
+              stats: dict | None = None):
+    """EM fixed point over the tie sets (the reference's _stage7_em_local):
+    every assigned read weighs 1, responsibilities are proportional to the
+    abundances inside its tie set, uniform start, stop at em_iters or when
+    the largest change falls below conv / assigned reads.  Returns (abund
+    (n_asvs,) float32 on the rows' device, assigned read count)."""
+    rd_all = row_read[in_tie]
+    if rd_all.numel() == 0:
+        return torch.full((n_asvs,), 1.0 / n_asvs, dtype=torch.float32, device=in_tie.device), 0
+    reads, rd = torch.unique(rd_all, return_inverse=True)
+    count = int(reads.numel())
+    abund = em_abundances_torch(
+        rd, row_asv[in_tie], torch.ones(count, dtype=torch.float32, device=in_tie.device),
+        n_asvs, float(count), conv / count, em_iters, stats,
+    )
+    return abund, count
+
+
+def _nm_per_pair(n_pairs: int, owner: np.ndarray, score: np.ndarray, nm: np.ndarray) -> np.ndarray:
+    """Per input pair the NM of its best job (highest score, first plan
+    position on ties: align_pairs_nm's rule), -1 where no job aligned."""
+    out = np.full(n_pairs, -1, dtype=np.int64)
+    ok = np.flatnonzero(score > 0)
+    if len(ok):
+        sel = ok[np.lexsort((ok, -score[ok].astype(np.int64), owner[ok]))]
+        ow = owner[sel]
+        first = sel[np.concatenate(([True], ow[1:] != ow[:-1]))]
+        out[owner[first]] = nm[first]
+    return out
+
+
+def em_cross_check(host_abund: np.ndarray, device_abund: np.ndarray) -> float:
+    """max |host float64 EM - device float32 EM| over the abundances, kept in
+    ROUTE_STATS for whoever reads the route's counters."""
+    delta = float(np.abs(np.asarray(host_abund, dtype=np.float64)
+                         - np.asarray(device_abund, dtype=np.float64)).max())
+    ROUTE_STATS["stage7"]["em_max_abs_diff"] = delta
+    return delta
+
+
+def mesh_stage7_tie_break(
+    read_seqs: list[bytes],
+    asv_seqs: list[bytes],
+    qi: np.ndarray,
+    ca: np.ndarray,
+    n_asvs: int,
+    band: int | None = None,
+    device="cuda",
+    em_iters: int | None = None,
+):
+    """The device route of stage 7 over the candidate pairs (read_seqs[qi[k]],
+    asv_seqs[ca[k]]), the indexed form align_pairs_nm_values_indexed takes:
+    plan them with the flat planner, run every job through kernel 1 (NM
+    mode) on `device`, close the tie sets and run the EM fixed point there.
+
+    Returns (nm_vals, device_abund, assigned_count):
+      nm_vals       (len(qi),) int64, the NM of each pair's winning job, -1
+        where none aligned: align_pairs_nm_values_indexed's array.
+      device_abund  (n_asvs,) float32 numpy, the device EM's abundances.
+        They reach no output: the emitted depths come from the host float64
+        EM, and the caller only logs the difference (em_cross_check).
+    """
+    t_start = time.perf_counter()
+    stats = ROUTE_STATS["stage7"]
+    stats["calls"] += 1
+    band = resolve_band(band)
+    if em_iters is None:
+        em_iters = EM_MAX_ITERATIONS
+    dev = resolve_device(device)
+    qi = np.asarray(qi, dtype=np.int64)
+    ca = np.asarray(ca, dtype=np.int64)
+    plan = _plan_soa_indexed(read_seqs, asv_seqs, qi, ca, band) if len(qi) else "empty"
+
+    nm_vals = None
+    if plan is None:
+        # per-job consumer: the same kernel on the same device.  It gives one
+        # winner per pair, so every aligned pair is a row of equal score
+        stats["fallbacks"] += 1
+        log.warning("stage-7 device route: the flat planner declined %d pairs; "
+                    "taking the per-job consumer on %s", len(qi), dev)
+        nm_vals = align_pairs_nm_values_indexed(read_seqs, asv_seqs, qi, ca, band, device=dev)
+        owner_j = np.flatnonzero(nm_vals >= 0)
+        nm = torch.from_numpy(nm_vals[owner_j].astype(np.int32)).to(dev)
+        score = torch.ones_like(nm)
+    elif plan == "empty":
+        owner_j = np.zeros(0, dtype=np.int64)
+        score = nm = torch.zeros(0, dtype=torch.int32, device=dev)
+    else:
+        owner_j, q_lens_j, band = plan[0], plan[6], plan[13]
+        dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
+        out = torch.empty((len(owner_j), 4), dtype=torch.int32, device=dev)
+        for sel in length_chunks_lens(q_lens_j, band, payload=False):
+            sel_t = torch.from_numpy(sel).to(dev)
+            out[sel_t] = sw_forward(*plan_tensors(dp, sel_t), band)
+        score, nm = out[:, 0].contiguous(), out[:, 3].contiguous()
+    stats["jobs"] += len(owner_j)
+
+    row_read = torch.from_numpy(qi[owner_j]).to(dev)
+    row_asv = torch.from_numpy(ca[owner_j]).to(dev)
+    in_tie = stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
+    em_stats: dict = {}
+    abund, count = stage7_em(in_tie, row_read, row_asv, n_asvs, em_iters, stats=em_stats)
+    stats["em_iters"] = em_stats.get("iters", 0)
+
+    if nm_vals is None:
+        fetched = torch.stack([score, nm]).cpu().numpy()  # one fetch
+        nm_vals = _nm_per_pair(len(qi), owner_j, fetched[0], fetched[1])
+    stats["seconds"] += time.perf_counter() - t_start
+    return nm_vals, abund.cpu().numpy(), count
+
+
+# ── stage 4: pileup count matrices ──────────────────────────────────────────
+
+
+def _count_on_host(plan, k: int, band: int, payload, consensuses, roff, nq: int, counts) -> None:
+    """Count plan job k, whose CIGAR overflowed kernel 2's run rows, through
+    the host oracle's alignment and pipeline/pileup.read_pileup_indices."""
+    from ..ops.encode import revcomp_bytes
+    from ..pipeline.pileup import read_pileup_indices
+
+    (r,) = run_jobs_host([plan_job(plan, k)], band)
+    if r is None:
+        return
+    _score, q0, _q1, t0, _t1, cigar, _nm = r
+    pi, ci = int(plan[0][k]), int(plan[3][k])
+    seq, qual, hp = payload[pi]
+    if int(plan[2][k]) == -1:
+        seq, qual, hp = revcomp_bytes(seq), qual[::-1], (hp[::-1] if hp is not None else None)
+    bq_i, del_i, ins_i, hp_i = read_pileup_indices(
+        consensuses[ci].sequence, seq, qual, hp if "hph" in counts else None, cigar, t0, q0)
+    o = int(roff[ci])
+    np.add.at(counts["bq"], o * nq * 2 + bq_i, 1)
+    np.add.at(counts["dels"], o + del_i, 1)
+    np.add.at(counts["ins"], o * nq + ins_i, 1)
+    if hp_i is not None:
+        np.add.at(counts["hph"], o * 64 + hp_i, 1)
+
+
+def mesh_stage4_pileups(twin_reads, consensuses, args):
+    """The device route of stage 4's pileup construction, on args.device.
+
+    Mirrors pipeline/pileup.host_consensus_pileups exactly: the same payload
+    (homopolymer-compressed per read under use_hpc), the same winner rule
+    (highest score, earliest plan job), the same count-matrix semantics.
+    The alignment, the traceback walk and the scatter run on the device in
+    launches cut by payload bytes, with the counts accumulated there and
+    fetched once.  Returns the PileupMatrix list and sets every consensus'
+    hp_lengths, as the host route does."""
+    from ..pipeline.pileup import (
+        NQ, PileupMatrix, _median_from_hist, _pileup_payload, host_consensus_pileups, qlevel,
+    )
+
+    t_start = time.perf_counter()
+    stats = ROUTE_STATS["stage4"]
+    stats["calls"] += 1
+    stats["overflow"] = 0
+    band = resolve_band(None)
+    dev = resolve_device(args.device)
+    use_hp = bool(args.use_hpc)
+
+    owners, payload = _pileup_payload(twin_reads, consensuses, args)
+    L_flat = np.fromiter((len(c.sequence) for c in consensuses), np.int64, len(consensuses))
+    roff = np.zeros(len(consensuses) + 1, dtype=np.int64)
+    np.cumsum(L_flat, out=roff[1:])
+    total_L = max(int(roff[-1]), 1)
+
+    tgt_pool_bytes = [cons.sequence.tobytes() for cons in consensuses]
+    plan = _plan_soa_indexed(
+        [p[0] for p in payload], tgt_pool_bytes,
+        np.arange(len(payload), dtype=np.int64), np.asarray(owners, dtype=np.int64), band,
+    ) if payload else "empty"
+    if plan is None:
+        # per-job consumer: the same kernels on the same device
+        stats["fallbacks"] += 1
+        log.warning("stage-4 device route: the flat planner declined %d pairs; "
+                    "taking the per-job consumer on %s", len(payload), dev)
+        pms = host_consensus_pileups(twin_reads, consensuses, args)
+        stats["seconds"] += time.perf_counter() - t_start
+        return pms
+
+    # host-side totals, in the device buffers' layout
+    counts = {k: np.zeros(v.numel(), dtype=np.int64)
+              for k, v in strip_sinks(new_count_buffers(total_L, NQ, use_hp, "cpu")).items()}
+
+    if plan != "empty":
+        owner_j, st_j, tid_j, q_lens_j, band = plan[0], plan[2], plan[3], plan[6], plan[13]
+        stats["jobs"] += len(owner_j)
+        dp = plan_to_device(plan, *_build_target_pool(tgt_pool_bytes, ext=True), dev)
+
+        # per-pair pools: the read's bytes, quality levels and clamped
+        # homopolymer run lengths, each uploaded once; a job's oriented rows
+        # are gathered from them on the device (backward for strand -1)
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+        p_len = np.fromiter((len(p[0]) for p in payload), np.int64, len(payload))
+        p_off = np.zeros(len(payload) + 1, dtype=np.int64)
+        np.cumsum(p_len, out=p_off[1:])
+        seq_cat = up(np.frombuffer(bytearray(b"".join(p[0] for p in payload)), dtype=np.uint8),
+                     np.uint8)
+        lvl_cat = up(qlevel(np.concatenate([p[1] for p in payload])), np.uint8)
+        hp_cat = (up(np.minimum(np.concatenate([p[2] for p in payload]), 63), np.uint8)
+                  if use_hp else None)
+        lut = up(_EXT_LUT, np.int32)
+        src_off = up(p_off[owner_j], np.int64)
+        rev = up(st_j == -1, bool)
+        off_j = up(roff[tid_j], np.int32)
+        pair_j = up(owner_j, np.int64)
+
+        acc = new_count_buffers(total_L, NQ, use_hp, dev)
+        Lt = dp["t_pool"].shape[1]
+        for sel in length_chunks_lens(q_lens_j, band, payload=True, group=owner_j):
+            sel_t = torch.from_numpy(sel).to(dev)
+            lens = dp["q_lens"][sel_t]
+            Lq = int(lens.max())
+            so, rv = src_off[sel_t], rev[sel_t]
+            q = lut[rv.long()[:, None], gather_rows(seq_cat, so, lens, Lq, 256, reverse=rv).long()]
+            lvl = gather_rows(lvl_cat, so, lens, Lq, 0, reverse=rv)
+            hp = gather_rows(hp_cat, so, lens, Lq, 0, reverse=rv) if use_hp else lvl
+            q, t, lo, tl = plan_tensors(dp, sel_t, q=q.contiguous())
+            out = sw_pileup_counts(
+                q, t, lo, tl, lvl, hp, off_j[sel_t], pair_j[sel_t],
+                total_L, NQ, band, Lq + Lt, use_hp, acc=acc, maxrun=traceback_torch.MAXRUN,
+            )
+            # CIGARs longer than kernel 2's run rows: counted on the host
+            for row in out["overflow"].tolist():
+                _count_on_host(plan, int(sel[row]), band, payload, consensuses, roff, NQ, counts)
+                stats["overflow"] += 1
+        LAUNCHES["walk_overflow"] += stats["overflow"]
+        for k, v in strip_sinks(acc).items():  # the one fetch
+            counts[k] += v.cpu().numpy()
+
+    pms = []
+    for ci, cons in enumerate(consensuses):
+        L = len(cons.sequence)
+        o = int(roff[ci])
+        pms.append(
+            PileupMatrix(
+                ref=cons.sequence.copy(),
+                bq=counts["bq"][o * NQ * 2 : (o + L) * NQ * 2].reshape(L, NQ, 2),
+                dels=counts["dels"][o : o + L],
+                ins_q=counts["ins"][o * NQ : (o + L) * NQ].reshape(L, NQ),
+                hp_hist=counts["hph"][o * 64 : (o + L) * 64].reshape(L, 64) if use_hp else None,
+            )
+        )
+    # median homopolymer length per position -> the consensus' hp_lengths
+    for cons, pm in zip(consensuses, pms):
+        if pm.hp_hist is not None:
+            cons.hp_lengths = _median_from_hist(pm.hp_hist)
+        else:
+            cons.hp_lengths = np.ones(len(cons.sequence), dtype=np.uint8)
+    stats["seconds"] += time.perf_counter() - t_start
+    return pms

@@ -75,7 +75,33 @@ def run_cluster(args: ClusterArgs) -> Path:
         _align.DEFAULT_BAND = prev_band
 
 
+# wall seconds of the last run by stage ("1" covers stages 1 and 1.5, "4"
+# the consensus rounds, "4p" the pileups and their analysis, "7" the
+# tie-break, EM and the output files)
+STAGE_SECONDS: dict[str, float] = {}
+
+
+_CLOCK: dict = {"stage": None, "t": 0.0}
+
+
+def _mark(stage: str | None) -> None:
+    """Close the running stage's clock and start `stage`'s (None: none)."""
+    now = time.perf_counter()
+    if _CLOCK["stage"] is not None:
+        STAGE_SECONDS[_CLOCK["stage"]] = STAGE_SECONDS.get(_CLOCK["stage"], 0.0) + now - _CLOCK["t"]
+    _CLOCK["stage"], _CLOCK["t"] = stage, now
+
+
 def _run_cluster_inner(args: ClusterArgs) -> Path:
+    STAGE_SECONDS.clear()
+    _mark(None)
+    try:
+        return _run_stages(args)
+    finally:
+        _mark(None)
+
+
+def _run_stages(args: ClusterArgs) -> Path:
     out_dir = Path(args.output_dir)
     temp_dir = out_dir / "temp"
     temp_dir.mkdir(parents=True, exist_ok=True)
@@ -103,6 +129,7 @@ def _run_cluster_inner(args: ClusterArgs) -> Path:
             log.warning("Failed to load checkpoint: %s; recomputing", e)
 
     if not resumed:
+        _mark("1")
         log.info("=== STAGE 1: k-mers and polymorphic markers ===")
         t0 = time.time()
         kmers, counts = stage1_kmers.read_to_split_kmers(args)
@@ -130,11 +157,13 @@ def _run_cluster_inner(args: ClusterArgs) -> Path:
             log.warning("Auto-enabling --low-polymorphism (>75%% of reads have no SNPmers)")
             args.low_polymorphism = True
 
+        _mark("2")
         log.info("=== STAGE 2: k-mer clustering ===")
         clusters = stage23_cluster.cluster_reads_by_kmers(twin_reads, args)
         log_memory_usage("STAGE 2 DONE: Clustered reads by k-mers")
         _write_simple_clusters(temp_dir / "kmer_clusters_stage2.tsv", clusters)
 
+        _mark("3")
         log.info("=== STAGE 3: SNPmer clustering ===")
         clusters = stage23_cluster.cluster_reads_by_snpmers(twin_reads, clusters, args, temp_dir)
         _write_final_snpmer_clusters(temp_dir / "final_snpmer_clusters_stage3.tsv", clusters, twin_reads)
@@ -147,12 +176,14 @@ def _run_cluster_inner(args: ClusterArgs) -> Path:
                 )
             log.info("Wrote stage-3 checkpoint to %s", ckpt_path)
 
+    _mark("4")
     log.info("=== STAGE 4: consensus + polish ===")
     consensuses = stage4_consensus.align_and_consensus(twin_reads, clusters, args)
     # alignment.rs:399-402 uses the standard writer (decompressed + N-trim
     # + full debug header) for the initial dump too (the writer peeks, so
     # the pileup stage still sees the uncached HPC form)
     write_consensus_fasta(consensuses, temp_dir / "consensus_sequences.fasta", "initial")
+    _mark("4p")
     pileups = pileup.generate_consensus_pileups(twin_reads, consensuses, args)
     quality_error_map = pileup.estimate_quality_error_rates(pileups, consensuses, 0.1)
     low_qual = pileup.analyze_pileup_consensuses(pileups, consensuses, quality_error_map, args)
@@ -165,12 +196,14 @@ def _run_cluster_inner(args: ClusterArgs) -> Path:
     write_clusters_tsv(consensuses, twin_reads, temp_dir / "clusters_after_quality_filter_stage4.tsv", "prefilter")
     write_consensus_fasta(low_qual, temp_dir / "low_quality_consensus_sequences.fasta", "lowqual")
 
+    _mark("5")
     log.info("=== STAGE 5: merge similar consensuses ===")
     consensuses, s5_hits = stage5_merge.merge_similar_consensuses(consensuses, low_qual, args)
     write_clusters_tsv(consensuses, twin_reads, temp_dir / "final_clusters_merged_stage5.tsv", "final")
     write_consensus_fasta(consensuses, temp_dir / "merged_consensus_sequences.fasta", "merged")
 
     if not args.skip_chimera_detection:
+        _mark("6")
         log.info("=== STAGE 6: chimera detection ===")
         chimeric = stage6_chimera.detect_chimeras(consensuses, args, precomputed_hits=s5_hits)
         consensuses = stage6_chimera.filter_chimeras(consensuses, chimeric)
@@ -178,6 +211,7 @@ def _run_cluster_inner(args: ClusterArgs) -> Path:
         log.info("Skipping chimera detection as per user request.")
         return out_dir
 
+    _mark("7")
     log.info("=== STAGE 7: EM depth refinement ===")
     em_fasta = temp_dir / "final_asvs_for_em.fasta"
     write_consensus_fasta(consensuses, em_fasta, "em_refinement")

@@ -386,9 +386,23 @@ def _pileup_payload(
 def generate_consensus_pileups(
     twin_reads: list[TwinRead], consensuses: list[ConsensusSequence], args: ClusterArgs
 ) -> list[PileupMatrix]:
-    """alignment.rs:409-652 on the matrix representation.  The alignments
-    run on args.device (kernels 1 and 2); the count-matrix scatter runs on
-    the host."""
+    """alignment.rs:409-652 on the matrix representation.
+
+    args.stage4_backend == "mesh" routes the whole construction (orient,
+    banded align, traceback, count-matrix scatter) through the device route
+    (parallel/mesh.mesh_stage4_pileups), bit-identical to the host route."""
+    if args.stage4_backend == "mesh":
+        from ..parallel.mesh import mesh_stage4_pileups
+
+        return mesh_stage4_pileups(twin_reads, consensuses, args)
+    return host_consensus_pileups(twin_reads, consensuses, args)
+
+
+def host_consensus_pileups(
+    twin_reads: list[TwinRead], consensuses: list[ConsensusSequence], args: ClusterArgs
+) -> list[PileupMatrix]:
+    """The host route: the alignments run on args.device through the per-job
+    consumer (kernels 1 and 2); the count-matrix scatter runs on the host."""
     owners, payload = _pileup_payload(twin_reads, consensuses, args)
     pairs = [p[0] for p in payload]
     # indexed form: consensuses are the target pool (deduped by id), reads

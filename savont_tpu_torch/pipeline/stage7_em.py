@@ -314,9 +314,21 @@ def refine_asv_depths_with_em(
     cand_trs = [read_list[int(r)] for r in ur.tolist()]
     TwinRead.warm_seq_bytes(cand_trs)  # one batched decode for all misses
     read_seqs = [tr.seq_bytes() for tr in cand_trs]
-    # stage 7 reads only NM: the values API returns one flat int64 array
-    # (-1 = unaligned) with no Mapping objects (kernel 1, NM mode)
-    nm_vals = align_pairs_nm_values_indexed(read_seqs, asv_seqs, qi, ca, device=args.device)
+    # stage7_backend == "mesh": the align + tie-set + EM step runs on the
+    # device (parallel/mesh.mesh_stage7_tie_break).  The NM winners come back
+    # equal to align_pairs_nm's, and the emitted depths still use the host
+    # float64 EM; the device float32 abundances are cross-checked below.
+    dev_abund = None
+    if args.stage7_backend == "mesh" and len(cr):
+        from ..parallel.mesh import mesh_stage7_tie_break
+
+        nm_vals, dev_abund, _dev_count = mesh_stage7_tie_break(
+            read_seqs, asv_seqs, qi, ca, len(consensuses), device=args.device
+        )
+    else:
+        # stage 7 reads only NM: the values API returns one flat int64 array
+        # (-1 = unaligned) with no Mapping objects (kernel 1, NM mode)
+        nm_vals = align_pairs_nm_values_indexed(read_seqs, asv_seqs, qi, ca, device=args.device)
 
     ok = nm_vals >= 0
     nm_all = np.where(ok, nm_vals, 0)
@@ -408,6 +420,14 @@ def refine_asv_depths_with_em(
             c.ambig_read_map_count = int(ambig[i])
             c.num_map_leq_10nm = int(leq10[i])
         abund = _run_em(eq_classes, len(consensuses), total_assigned)
+        if dev_abund is not None:
+            # float32 index_add_ on a CUDA device adds in no fixed order, so
+            # the device abundances differ in their last bits between runs;
+            # they are held to the host EM within 1e-4 and reach no output
+            from ..parallel.mesh import em_cross_check
+
+            log.info("Stage 7 device EM cross-check: max |host - device| = %.3e",
+                     em_cross_check(abund, dev_abund))
         consensuses = _apply_depths(consensuses, abund, total_assigned)
     return consensuses, eq_classes, total_assigned
 

@@ -174,7 +174,7 @@ def check(device="cuda", iters: int = CHECK_ITERS) -> dict[str, int]:
     return err
 
 
-def _launch_ms(fn, reps: int = 3) -> float:
+def launch_ms(fn, reps: int = 3) -> float:
     """Best of `reps` single calls, CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
@@ -190,7 +190,53 @@ def _launch_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def _max_sm_clock_hz() -> float:
+def in_turns(kernel, plain, library=None) -> dict:
+    """Times of one call each in the order plain, kernel, kernel, plain (the
+    two orders of one pair), then the library call where there is one:
+    {"ms", "plain_ms", "library_ms"}, each the better of its runs; and
+    "max_abs_err", the largest |kernel - plain version| (and |library call -
+    plain version|, which must be 0 for the call to count as the same
+    function) over the outputs of these very inputs, so that a time never
+    stands beside an output nobody compared."""
+    p1 = launch_ms(plain, reps=1)
+    k1 = launch_ms(kernel)
+    k2 = launch_ms(kernel)
+    p2 = launch_ms(plain, reps=1)
+    want = plain()
+    err = max_abs_err(kernel(), want)
+    lib_ms = None
+    if library is not None:
+        lib_ms = launch_ms(library)
+        lib_err = max_abs_err(library(), want)
+        if lib_err:
+            raise AssertionError(f"the library call differs from the plain version by {lib_err}")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+            "max_abs_err": err}
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """max |got - want| of two integer tensors of one shape (0 when empty)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} against {tuple(want.shape)}")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def bound(ops: float, nbytes: float, ops_per_s: float) -> dict:
+    """The least time for `ops` operations at `ops_per_s` and `nbytes` bytes
+    at the card's memory rate: {"bound_ms", "bound_by"}."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def published_dispatch_rate(device="cuda") -> float:
+    """Thread-instructions per second the card dispatches at its largest SM
+    clock: SMs x DISPATCH_LANES_PER_SM x clock."""
+    props = torch.cuda.get_device_properties(resolve_device(device))
+    return props.multi_processor_count * DISPATCH_LANES_PER_SM * max_sm_clock_hz()
+
+
+def max_sm_clock_hz() -> float:
     r = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -201,7 +247,8 @@ def _max_sm_clock_hz() -> float:
 def measure(device="cuda") -> dict:
     """Rates of every body on the whole card and on one SM (difference
     method), and one launch of each kernel beside one call of its plain
-    version at PLAIN_ITERS, in the order plain, kernel, kernel, plain."""
+    version at PLAIN_ITERS, in the order plain, kernel, kernel, plain, their
+    outputs compared (max_abs_err)."""
     dev = resolve_device(device)
     shape = card_shape(dev)
     it1, it2 = TIMED_ITERS
@@ -212,28 +259,23 @@ def measure(device="cuda") -> dict:
         for where in ("card", "one_sm"):
             n, threads = shape[where]
             x, y = inputs(n, dev)
-            t1 = _launch_ms(lambda: roofline(kind, x, y, it1, threads))
-            t2 = _launch_ms(lambda: roofline(kind, x, y, it2, threads))
+            t1 = launch_ms(lambda: roofline(kind, x, y, it1, threads))
+            t2 = launch_ms(lambda: roofline(kind, x, y, it2, threads))
             ops_per_s = n * OPS_PER_ITER[kind] * (it2 - it1) / ((t2 - t1) * 1e-3)
             r[where] = {"threads": n, "ms": [t1, t2], "tops": ops_per_s / 1e12,
                         "tvalues": ops_per_s * VALUES_PER_OP[kind] / 1e12}
         n, threads = shape["card"]
         x, y = inputs(n, dev)
-        p1 = _launch_ms(lambda: roofline_reference(kind, x, y, PLAIN_ITERS), reps=1)
-        k1 = _launch_ms(lambda: roofline(kind, x, y, PLAIN_ITERS, threads))
-        k2 = _launch_ms(lambda: roofline(kind, x, y, PLAIN_ITERS, threads))
-        p2 = _launch_ms(lambda: roofline_reference(kind, x, y, PLAIN_ITERS), reps=1)
-        r["ms"], r["plain_ms"] = min(k1, k2), min(p1, p2)
+        t = in_turns(lambda: roofline(kind, x, y, PLAIN_ITERS, threads),
+                     lambda: roofline_reference(kind, x, y, PLAIN_ITERS))
+        r["ms"], r["plain_ms"], r["max_abs_err"] = t["ms"], t["plain_ms"], t["max_abs_err"]
         r["ops"] = n * OPS_PER_ITER[kind] * PLAIN_ITERS
         r["bytes"] = 3 * 4 * n
         res[kind] = r
-    peak = shape["sms"] * DISPATCH_LANES_PER_SM * _max_sm_clock_hz()
+    peak = published_dispatch_rate(dev)
     res["published_dispatch_tops"] = peak / 1e12
     for kind in KINDS:
-        r = res[kind]
-        t_ops, t_bytes = r["ops"] / peak * 1e3, r["bytes"] / HBM_BYTES_PER_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        res[kind].update(bound(res[kind]["ops"], res[kind]["bytes"], peak))
     # the card's integer max/add throughput: the better of the dependent
     # chain and the independent chains (the TPU probe's rule)
     res["int32_tops"] = max(res["peak"]["card"]["tops"], res["ilp"]["card"]["tops"])
@@ -248,10 +290,10 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found (PATH, $CUDA_HOME/bin)")
 
 
-def sass_loops(text: str) -> dict[str, list[dict]]:
-    """Per kernel of a cuobjdump -sass listing, the opcode counts of each
-    innermost loop: a backward branch (to an address or a label) whose
-    range holds no other such loop."""
+def _sass_functions(text: str) -> tuple[dict[str, list], dict[str, int]]:
+    """Per kernel of a cuobjdump -sass listing its instructions as (address,
+    text without the predicate, labels seen so far), and every label's
+    position in its kernel's list."""
     funcs: dict[str, list] = {}
     body: list | None = None
     labels: dict[str, int] = {}
@@ -270,6 +312,31 @@ def sass_loops(text: str) -> dict[str, list[dict]]:
         if m:
             ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
             body.append((int(m.group(1), 16), ins, dict(labels)))
+    return funcs, labels
+
+
+def _opcodes(instructions) -> dict[str, int]:
+    return dict(Counter(ins.split()[0] for _, ins, _ in instructions).most_common())
+
+
+def sass_bodies(text: str) -> dict[str, dict]:
+    """Per kernel of a cuobjdump -sass listing, the opcode counts of its whole
+    body: every instruction but the NOP padding and the self-branch before
+    it.  For a kernel without a loop, where sass_loops has nothing to say."""
+    out = {}
+    for name, body in _sass_functions(text)[0].items():
+        real = [b for b in body if b[1].split()[0] != "NOP"]
+        while real and real[-1][1].split()[0].startswith("BRA"):
+            real.pop()
+        out[name] = {"instructions": len(real), "opcodes": _opcodes(real)}
+    return out
+
+
+def sass_loops(text: str) -> dict[str, list[dict]]:
+    """Per kernel of a cuobjdump -sass listing, the opcode counts of each
+    innermost loop: a backward branch (to an address or a label) whose
+    range holds no other such loop."""
+    funcs, labels = _sass_functions(text)
     out = {}
     for name, body in funcs.items():
         addrs = [a for a, _, _ in body]
@@ -288,24 +355,29 @@ def sass_loops(text: str) -> dict[str, list[dict]]:
         inner = [a for a in loops
                  if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
         out[name] = [
-            {"instructions": e - s + 1,
-             "opcodes": dict(Counter(body[k][1].split()[0] for k in range(s, e + 1)).most_common())}
+            {"instructions": e - s + 1, "opcodes": _opcodes(body[s : e + 1])}
             for s, e in inner
         ]
     return out
 
 
-def dump_sass(out_dir: Path) -> dict[str, list[dict]]:
-    """Write cuobjdump's SASS of the kernel library to out_dir and return
-    sass_loops of it."""
+def dump_sass(out_dir: Path) -> str:
+    """Write cuobjdump's SASS of the kernel library to out_dir, with
+    sass_loops and sass_bodies of it, and return the listing."""
     build_kernels()
     r = subprocess.run([_cuobjdump(), "-sass", BUILD_INFO["path"]],
                        capture_output=True, text=True, timeout=300, check=True)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "kernels.sass").write_text(r.stdout)
-    loops = sass_loops(r.stdout)
-    (out_dir / "sass_loops.json").write_text(json.dumps(loops, indent=1))
-    return loops
+    (out_dir / "sass_loops.json").write_text(json.dumps(sass_loops(r.stdout), indent=1))
+    (out_dir / "sass_bodies.json").write_text(json.dumps(sass_bodies(r.stdout), indent=1))
+    return r.stdout
+
+
+def loops_of(counts: dict, word: str) -> dict:
+    """The entries of sass_loops' or sass_bodies' result whose kernel name
+    holds `word`."""
+    return {k: v for k, v in counts.items() if word in k}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -319,9 +391,11 @@ def main(argv: list[str] | None = None) -> int:
     if any(err.values()):
         raise AssertionError(f"roofline kernels differ from their plain versions: {err}")
     rec = {"device": torch.cuda.get_device_name(dev), "max_abs_err": err, **measure(dev)}
+    timed_err = {k: rec[k]["max_abs_err"] for k in KINDS}
+    if any(timed_err.values()):
+        raise AssertionError(f"roofline kernels differ from their plain versions in the timed runs: {timed_err}")
     if ns.sass is not None:
-        loops = dump_sass(ns.sass)
-        rec["sass_inner_loops"] = {k: v for k, v in loops.items() if "roofline" in k}
+        rec["sass_inner_loops"] = loops_of(sass_loops(dump_sass(ns.sass)), "roofline")
     print(json.dumps(rec))
     return 0
 

@@ -3,8 +3,14 @@
 Each job set holds corridors whose largest per-row advance is 1, exactly 2
 (small deletions), and above 2 (a structural deletion), on both strands,
 plus an unrelated pair.  Inputs are made with numpy from a fixed seed and
-need no external data."""
+need no external data.
+
+Also the converters that hand both packages identical inputs on the device
+routes of stages 4 and 7: the reference's flat plan (numpy) packed into its
+(rows, slots) panels the way its parallel/mesh.py packs them, and those
+panels as the flat-row tensors the port's functions take."""
 import numpy as np
+import torch
 
 from savont_tpu.ops.align import TargetIndex
 from savont_tpu.ops.align_batch import plan_jobs
@@ -71,6 +77,152 @@ def substitution_jobs(seed: int, band: int, n: int, length: int):
         jobs.extend(plan_jobs(TargetIndex([t]), q, band=band, min_anchors=2))
     return jobs[:n]
 
+
+def indexed_pairs(seed: int, n_queries: int = 10, n_targets: int = 3, length: int = 320):
+    """Unique query and target pools with index arrays, as the device routes
+    hold them: targets are variants of one template (a few SNPs apart),
+    queries are reads of them (4% substitutions; every fourth with a 3 bp
+    deletion, one with a 60 bp deletion, which gives a corridor jump above
+    2), odd ones reverse-complemented; each query is paired with its own
+    target and the next one.  Returns (queries, targets, job_uq, job_ti)."""
+    rng = np.random.default_rng(seed)
+    base = bytearray(rand_seq(rng, length))
+    targets = []
+    for k in range(n_targets):
+        t = bytearray(base)
+        for p in range(25 + 11 * k, length - 20, 70):
+            t[p] = b"ACGT"[(b"ACGT".index(bytes([t[p]])) + 1 + k) % 4]
+        targets.append(bytes(t))
+    queries, job_uq, job_ti = [], [], []
+    for i in range(n_queries):
+        q = substitute(rng, targets[i % n_targets], 0.04)
+        if i % 4 == 1:
+            p = int(rng.integers(40, length - 60))
+            del q[p : p + 3]
+        if i == 2:
+            del q[length // 2 : length // 2 + 60]
+        q = bytes(q)
+        queries.append(revcomp_bytes(q) if i % 2 else q)
+        for a in sorted({i % n_targets, (i + 1) % n_targets}):
+            job_uq.append(i)
+            job_ti.append(a)
+    return queries, targets, np.asarray(job_uq, np.int64), np.asarray(job_ti, np.int64)
+
+
+def _scatter_rows(dst, rows_flat, width, lens, src_off, src, col0):
+    """The reference's panel scatter (parallel/mesh.py `_scatter`)."""
+    total = int(lens.sum())
+    within = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(lens) - lens, lens)
+    dst.reshape(-1)[np.repeat(rows_flat * width, lens) + col0 + within] = \
+        src[np.repeat(src_off, lens) + within]
+
+
+def slot_layout(owner: np.ndarray):
+    """(order, rows_flat, C): plan jobs sorted by owner (stable), each
+    owner's jobs in consecutive slots of its row, as the reference lays
+    its panels out."""
+    order = np.argsort(owner, kind="stable")
+    ow = owner[order]
+    slot = np.arange(len(ow)) - np.searchsorted(ow, ow, side="left")
+    C = int(slot.max()) + 1 if len(ow) else 1
+    return order, ow * C + slot, C
+
+
+def lo_panel_of(plan, order, rows_flat, n_rows, Lq):
+    """The reference's (rows, Lq+1) corridor panel: column 0 = column 1, the
+    last value forward-filled over the padding."""
+    lo_flat, lo_off_j, q_lens_j = plan[10], plan[11], plan[6]
+    lo_panel = np.zeros((n_rows, Lq + 1), dtype=np.int32)
+    _scatter_rows(lo_panel, rows_flat, Lq + 1, q_lens_j[order].astype(np.int64),
+                  lo_off_j[order], lo_flat.astype(np.int32), 1)
+    lo_panel[rows_flat, 0] = lo_panel[rows_flat, 1]
+    np.maximum.accumulate(lo_panel, axis=1, out=lo_panel)
+    return lo_panel
+
+
+def stage7_panels(plan, pair_read, pair_asv, n_reads, tgt_bytes, smooth=True):
+    """The reference's stage-7 candidate panels from its flat plan, packed as
+    mesh_stage7_tie_break packs them (one device, one chunk, the unpacked
+    layout): q (R, C, Lq) pad 5, lo (R, C, Lq+1) smoothed, slot_tid /
+    slot_asv (R, C) with -1 for empty slots, the target pool, and rows_flat
+    / order, the panel row of each plan job."""
+    from savont_tpu.ops.align import smooth_lo
+    from savont_tpu.parallel.mesh import _build_target_pool
+
+    owner_j, tid_j, q_cat, q_off_j, q_lens_j = plan[0], plan[3], plan[4], plan[5], plan[6]
+    order, rows_flat, C = slot_layout(pair_read[owner_j])
+    R, Lq = n_reads, int(q_lens_j.max())
+    q_panel = np.full((R * C, Lq), 5, dtype=np.int32)
+    _scatter_rows(q_panel, rows_flat, Lq, q_lens_j[order].astype(np.int64), q_off_j[order],
+                  q_cat.astype(np.int32), 0)
+    lo_panel = lo_panel_of(plan, order, rows_flat, R * C, Lq)
+    if smooth:
+        lo_panel = smooth_lo(lo_panel)
+    slot_tid = np.full(R * C, -1, dtype=np.int32)
+    slot_asv = np.full(R * C, -1, dtype=np.int32)
+    slot_tid[rows_flat] = tid_j[order]
+    slot_asv[rows_flat] = pair_asv[owner_j[order]]
+    t_pool, tlens_pool = _build_target_pool(tgt_bytes)
+    return {
+        "q": q_panel.reshape(R, C, Lq), "lo": lo_panel.reshape(R, C, Lq + 1),
+        "slot_tid": slot_tid.reshape(R, C), "slot_asv": slot_asv.reshape(R, C),
+        "t_pool": t_pool, "tlens_pool": tlens_pool, "rows_flat": rows_flat, "order": order,
+    }
+
+
+def panel_rows(panels, names=("q", "lo")):
+    """The occupied rows of (rows, slots, ...) panels as flat-row int32
+    tensors for the port, in the panels' slot order, with each row's target
+    gathered from the pool: dict of the named panels, t and tlens."""
+    rf = panels["rows_flat"]
+    out = {}
+    for name in names:
+        a = panels[name]
+        out[name] = torch.from_numpy(
+            np.ascontiguousarray(a.reshape(-1, a.shape[-1])[rf].astype(np.int32)))
+    tid = panels["slot_tid"].reshape(-1)[rf]
+    out["t"] = torch.from_numpy(np.ascontiguousarray(panels["t_pool"][tid].astype(np.int32)))
+    out["tlens"] = torch.from_numpy(panels["tlens_pool"][tid].astype(np.int32))
+    return out
+
+
+def stage4_panels(plan, payload, roff, tgt_bytes, use_hp):
+    """The reference's stage-4 pair panels from its flat plan, packed as
+    mesh_stage4_pileups packs them: per (pair, slot) row the oriented
+    raw-byte codes (pad 5), quality levels, clamped homopolymer run lengths,
+    the raw corridor, the target id and the flat consensus offset."""
+    from savont_tpu.parallel.mesh import _build_target_pool, _ext_codes
+    from savont_tpu.pipeline.pileup import qlevel
+
+    owner_j, st_j, tid_j, q_lens_j = plan[0], plan[2], plan[3], plan[6]
+    order, rows_flat, C = slot_layout(owner_j)
+    Pn, Lq = len(payload), int(q_lens_j.max())
+    q_panel = np.full((Pn * C, Lq), 5, dtype=np.int32)
+    lvl_panel = np.zeros((Pn * C, Lq), dtype=np.int32)
+    hp_panel = np.zeros((Pn * C, Lq if use_hp else 1), dtype=np.int32)
+    tid_panel = np.full(Pn * C, -1, dtype=np.int32)
+    off_panel = np.zeros(Pn * C, dtype=np.int32)
+    for idx, k in enumerate(order.tolist()):
+        row = int(rows_flat[idx])
+        seq, qual, hp = payload[int(owner_j[k])]
+        if int(st_j[k]) == -1:
+            seq, qual, hp = revcomp_bytes(seq), qual[::-1], (hp[::-1] if hp is not None else None)
+        n = len(seq)
+        q_panel[row, :n] = _ext_codes(seq)
+        lvl_panel[row, :n] = qlevel(qual)
+        if use_hp:
+            hp_panel[row, :n] = np.minimum(hp, 63)
+        tid_panel[row] = int(tid_j[k])
+        off_panel[row] = int(roff[int(tid_j[k])])
+    t_pool, tlens_pool = _build_target_pool(tgt_bytes)
+    for i, tb in enumerate(tgt_bytes):
+        t_pool[i, : len(tb)] = _ext_codes(tb)
+    return {
+        "q": q_panel, "lvl": lvl_panel, "hp": hp_panel,
+        "lo": lo_panel_of(plan, order, rows_flat, Pn * C, Lq),
+        "slot_tid": tid_panel, "off": off_panel, "t_pool": t_pool, "tlens_pool": tlens_pool,
+        "rows_flat": rows_flat, "order": order, "C": C,
+    }
 
 
 def clear_caches() -> None:

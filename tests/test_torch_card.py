@@ -1,9 +1,11 @@
-"""On the card: the port's `asv --device cuda` against the JAX package's host
-run_cluster on chip_smoke.py's 5,000 reads, in turns (host, port, port,
-host, host, port) after one untimed run of each, all in one process.  Every
-run's outputs must equal the first host run's, byte for byte; the wall time
-of each run and the port's seconds inside its DP routes are printed as one
-JSON line.
+"""On the card: the port's `asv --device cuda`, with its device routes of
+stages 4 and 7 ("mesh", the default) and with its per-job routes ("perjob":
+--stage4-backend host --stage7-backend host), against the JAX package's host
+run_cluster on chip_smoke.py's 5,000 reads, in turns (ORDER below) after one
+untimed run of each, all in one process.  Every run's outputs must equal
+the first host run's, byte for byte; the wall time of each run, the port's
+seconds by stage, inside its device routes and inside its per-job DP routes
+are printed as one JSON line.
 
 Skips without a card.  On the card (no jax there, so without this
 directory's conftest):
@@ -21,10 +23,13 @@ from savont_tpu.config import ClusterArgs
 from savont_tpu.pipeline.asv import run_cluster
 from savont_tpu_torch import cli
 from savont_tpu_torch.ops import align_batch
+from savont_tpu_torch.parallel import mesh
+from savont_tpu_torch.pipeline import asv as port_asv
 
 from _torch_jobs import clear_caches
 
-ORDER = ("host", "port", "port", "host", "host", "port")
+ORDER = ("host", "mesh", "perjob", "perjob", "mesh", "host", "host", "mesh", "perjob")
+ROUTES = {"mesh": [], "perjob": ["--stage4-backend", "host", "--stage7-backend", "host"]}
 
 
 def test_card_run_matches_host_run_in_turns(tmp_path):
@@ -33,26 +38,32 @@ def test_card_run_matches_host_run_in_turns(tmp_path):
     fq, tpl = tmp_path / "reads.fq.gz", tmp_path / "templates.fa"
     chip_smoke.write_reads(fq, tpl, chip_smoke.main_path_rng())
 
-    def run(side: str, out) -> tuple[float, float]:
+    def run(side: str, out) -> dict:
         clear_caches()
+        mesh.reset_route_stats()
         for k in align_batch.ROUTE_SECONDS:
             align_batch.ROUTE_SECONDS[k] = 0.0
         t0 = time.perf_counter()
         if side == "host":
             run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(out), threads=4))
-        else:
-            assert cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out),
-                             "--device", "cuda", "-t", "4"]) == 0
-            torch.cuda.synchronize()
-        return time.perf_counter() - t0, sum(align_batch.ROUTE_SECONDS.values())
+            return {"side": side, "wall_s": time.perf_counter() - t0}
+        assert cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out),
+                         "--device", "cuda", "-t", "4", *ROUTES[side]]) == 0
+        torch.cuda.synchronize()
+        return {"side": side, "wall_s": time.perf_counter() - t0,
+                "dp_route_s": sum(align_batch.ROUTE_SECONDS.values()),
+                "device_route_s": {k: v["seconds"] for k, v in mesh.ROUTE_STATS.items()},
+                "stage_s": dict(port_asv.STAGE_SECONDS)}
 
-    first = {side: run(side, tmp_path / f"{side}_warmup")[0] for side in ("host", "port")}
+    first = {side: run(side, tmp_path / f"{side}_warmup")["wall_s"]
+             for side in ("host", "mesh", "perjob")}
     runs = []
     for i, side in enumerate(ORDER):
-        wall, dp = run(side, tmp_path / f"run{i}")
-        runs.append({"side": side, "wall_s": wall, "dp_route_s": dp if side == "port" else None})
+        runs.append(run(side, tmp_path / f"run{i}"))
         assert chip_smoke.output_digests(tmp_path / f"run{i}") == \
             chip_smoke.output_digests(tmp_path / "host_warmup")
+        calls = [v["calls"] for v in mesh.ROUTE_STATS.values()]
+        assert all(calls) if side == "mesh" else not any(calls)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi, "first_runs_s": first, "runs": runs}))

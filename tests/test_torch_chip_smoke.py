@@ -29,6 +29,32 @@ def test_pinned_digests_equal_host_run(tmp_path):
     assert len(val) >= 5 and all(v.nm == 0 for v in val)
 
 
+def test_small_sample_digests_equal_host_run(tmp_path):
+    """The same for the 1,500-read sample of the host-routes run, drawn
+    after the main sample."""
+    fq, tpl = tmp_path / "reads.fq.gz", tmp_path / "templates.fa"
+    chip_smoke.write_reads(fq, tpl, chip_smoke.small_sample_rng(), chip_smoke.N_READS_SMALL)
+    clear_caches()
+    run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(tmp_path / "host"), threads=4))
+    assert chip_smoke.output_digests(tmp_path / "host") == chip_smoke.DIGESTS_SMALL
+    val = validate_asvs(str(tmp_path / "host" / "final_asvs.fasta"), str(tpl))
+    assert len(val) >= 5 and all(v.nm == 0 for v in val)
+
+
+def test_kernels_table_names_every_counter():
+    """Every kernel the port counts launches of stands in chip_smoke's table
+    with its source in the repository."""
+    from savont_tpu_torch.ops import align_torch
+    from savont_tpu_torch.probes import bitcast, i16ops, roll, roofline
+
+    counted = set(align_torch.LAUNCHES) - {"walk_overflow"}
+    for mod in (roofline, bitcast, i16ops, roll):
+        counted |= set(mod.LAUNCHES)
+    assert counted == set(chip_smoke.KERNELS)
+    for src, rep in chip_smoke.KERNELS.values():
+        assert (ROOT / src).is_file() and (ROOT / rep.split(":")[0]).is_file()
+
+
 def test_sw_bounds_from_shapes():
     shape = {"B": 2304, "Lq": 1450, "Lt": 1450, "band": 48, "walk_steps": 2304 * 1450}
     b = chip_smoke.sw_bounds(shape, 10e12)

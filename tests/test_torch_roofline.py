@@ -184,3 +184,29 @@ def test_sass_loops_finds_innermost_loops(style):
     loops = roofline.sass_loops(LISTINGS[style])
     inner = {"instructions": 4, "opcodes": {"IMNMX": 1, "IADD3": 1, "ISETP.NE.AND": 1, "BRA": 1}}
     assert loops == {"roofline_peak": [inner, {"instructions": 1, "opcodes": {"BRA": 1}}]}
+
+
+@pytest.mark.parametrize("style", sorted(LISTINGS))
+def test_sass_bodies_counts_the_whole_kernel(style):
+    """Every instruction up to EXIT; the self-branch behind it (and NOP
+    padding) is not part of the body."""
+    listing = LISTINGS[style] + "        /*00a0*/                   NOP ;\n"
+    assert roofline.sass_bodies(listing) == {"roofline_peak": {
+        "instructions": 9,
+        "opcodes": {"IMNMX": 2, "IADD3": 2, "BRA": 2, "MOV": 1, "ISETP.NE.AND": 1, "EXIT": 1},
+    }}
+    assert roofline.loops_of(roofline.sass_bodies(listing), "bitcast") == {}
+
+
+def test_max_abs_err_of_the_timed_outputs():
+    """What in_turns reports beside its times: 0 for equal outputs whatever
+    their integer types, the largest difference otherwise, and no silent
+    broadcast of unequal shapes."""
+    a = torch.tensor([[1, -5, 7]], dtype=torch.int32)
+    assert roofline.max_abs_err(a, a.clone()) == 0
+    assert roofline.max_abs_err(a, a.to(torch.int16)) == 0
+    assert roofline.max_abs_err(a, torch.tensor([[1, -5, 4]], dtype=torch.int16)) == 3
+    assert roofline.max_abs_err(torch.tensor([70000]), torch.tensor([4464], dtype=torch.int16)) == 65536
+    assert roofline.max_abs_err(torch.tensor([True, False]), torch.tensor([1, 1], dtype=torch.int32)) == 1
+    with pytest.raises(AssertionError):
+        roofline.max_abs_err(a, a[0])
