@@ -20,7 +20,14 @@ failure; nothing catches it, so the exit code is non-zero):
                  the three roofline kernels and the eleven kernels of the
                  bitcast, i16ops and roll probes must equal their plain
                  versions (bitcast: formula A is the roll by 1, formula B is
-                 not).  Tolerance 0 throughout: every output is an integer;
+                 not).  Then the edge shapes: small raw inputs the planner
+                 does not produce (edge_cases: bands 1 to 256, batches of 1,
+                 31 and 65 pairs, one-row queries, targets of length 0 and 1
+                 and shorter than the corridor, band jumps up to and past
+                 the band, codes 4 / 5 / 6, a pair of score 0, ties across
+                 rows and lanes) through both modes of kernel 1 and through
+                 kernel 2.  Tolerance 0 throughout: every output is an
+                 integer;
   4. probes    - the timed runs of the integer roofline probe
                  (savont_tpu_torch.probes.roofline.measure: the card's int32
                  max/add rate, which bounds kernel 1) and of the bitcast,
@@ -65,11 +72,15 @@ TEMPLATE_LEN = 1450
 SEED = 2026
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MAXRUN = 512
-# integer instructions per DP cell in kernel 1's inner loop (band <= 64),
-# counted from its SASS (python -m savont_tpu_torch.probes.roofline --sass
-# DIR, sass_loops.json): NM mode 61 of the 88 instructions of a one-cell
-# loop trip, payload mode 121 of 146 in a two-cell trip; the rest are local
-# and global loads and stores and branches
+EDGE_BANDS = (1, 7, 32, 33, 48, 64, 100, 128, 200, 256)
+EDGE_SEED = 2027
+# integer instructions per DP cell of the sequential recurrence: the count
+# behind kernel 1's bound, which does not move with the implementation.  It
+# was taken from the SASS of the one-thread-per-pair kernel that walked the
+# band in sequence (band <= 64): NM mode 61 of the 88 instructions of a
+# one-cell loop trip, payload mode 121 of 146 in a two-cell trip; the rest
+# were loads, stores and branches.  The warp-per-pair kernel's own row loop
+# is listed by python -m savont_tpu_torch.probes.roofline --sass DIR
 OPS_PER_CELL = {"sw_forward_nm": 61, "sw_forward_payload": 60.5}
 # sha256 of the outputs of the JAX package's host run_cluster(threads=4) on
 # write_reads' fastq, named reads.fq.gz
@@ -101,8 +112,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_done(name: str) -> None:
+    log(f"[{time.perf_counter() - T0:6.1f} s] {name} done")
 
 
 def nvidia_smi_line() -> str:
@@ -113,11 +131,13 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call over `reps` calls (after a warm-up)."""
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
+    """Mean device milliseconds per call over `reps` calls, after a warm-up
+    call unless the caller has made one."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -180,6 +200,123 @@ def plan(pairs, band: int) -> list:
     return jobs
 
 
+def edge_case(rng, name: str, band: int, B: int, Lq: int) -> dict:
+    """B raw pairs at `band`: per-row advances drawn from 0, 1, 2, 3, band-1,
+    band and band+5 (row 1 included; every second pair advances by 1 in 93%
+    of its rows), corridors that start at column 0 to 3, target lengths by
+    pair index (0, 1, below the band, inside the last corridor rows, past
+    them), queries read off the target along the corridor with an offset
+    that moves mid-way (so E and F gaps win), 4% substitutions, codes 4 in
+    both, a padded query tail (code 5), target padding (code 6) past each
+    target's end, and one all-padding query, whose score is 0."""
+    import numpy as np
+
+    steps = np.array([0, 1, 2, 3, band - 1, band, band + 5])
+    wild = rng.choice(steps, (B, Lq), p=[0.2, 0.62, 0.06, 0.04, 0.03, 0.03, 0.02])
+    calm = rng.choice(steps, (B, Lq), p=[0.03, 0.93, 0.015, 0.01, 0.005, 0.005, 0.005])
+    dl = np.where((np.arange(B) % 2 == 1)[:, None], calm, wild)  # odd pairs align at length
+    lo = np.concatenate([rng.integers(0, 4, (B, 1)), dl], axis=1).cumsum(axis=1)
+    lo[0] -= lo[0, 0]  # pair 0 starts at column 0: the free left edge
+    if Lq > 1:
+        lo[0, 1] = 0
+        lo[0] = np.maximum.accumulate(lo[0])
+    end = lo[:, -1] + band
+    kinds = np.arange(B) % 8
+    tlens = np.where(kinds == 5, 0, np.where(kinds == 6, 1, np.where(
+        kinds == 7, rng.integers(1, max(band, 2), B), np.where(
+            (kinds == 3) | (kinds == 4), np.maximum(end - band // 2 - 1, 1), end + 2))))
+    Lt = int(max(tlens.max(), 1)) + 3
+    t = rng.integers(0, 4, (B, Lt))
+    t[rng.random((B, Lt)) < 0.03] = 4
+    off = np.where(np.arange(Lq) < Lq // 2, band // 2,
+                   np.where(np.arange(Lq) < 3 * Lq // 4, min(band // 2 + 3, band - 1), band // 2))
+    q = np.take_along_axis(t, np.minimum(lo[:, 1:] + off[None, :], Lt - 1), axis=1)
+    sub = rng.random((B, Lq)) < 0.04
+    q[sub] = rng.integers(0, 4, int(sub.sum()))
+    q[rng.random((B, Lq)) < 0.02] = 4
+    q[kinds == 2, Lq - Lq // 10:] = 5
+    if B > 4:
+        q[4] = 5
+    t[np.arange(Lt)[None, :] >= tlens[:, None]] = 6
+    i32 = np.int32
+    return {"name": name, "band": band, "q": q.astype(i32), "t": t.astype(i32),
+            "lo": lo.astype(i32), "tlens": tlens.astype(i32)}
+
+
+def tie_case(band: int) -> dict:
+    """Three pairs whose maximum is reached in two rows and in several band
+    cells: the target repeats ACGT, the query is six repeats, 30 rows of
+    padding (which send every score back to 0) and the six repeats again.
+    Corridors: one column per row, no advance at all, two columns per row."""
+    import numpy as np
+
+    unit = np.arange(4)
+    q = np.concatenate([np.tile(unit, 6), np.full(30, 5), np.tile(unit, 6)])
+    Lq = len(q)
+    rows = np.arange(Lq + 1)
+    lo = np.stack([np.maximum(rows - 1, 0), np.zeros(Lq + 1, int), 2 * np.maximum(rows - 1, 0)])
+    Lt = int(lo.max()) + band + 8
+    t = np.tile(unit, Lt // 4 + 1)[:Lt]
+    i32 = np.int32
+    return {"name": f"ties_band{band}", "band": band, "q": np.tile(q, (3, 1)).astype(i32),
+            "t": np.tile(t, (3, 1)).astype(i32), "lo": lo.astype(i32),
+            "tlens": np.full(3, Lt, i32)}
+
+
+def edge_cases(seed: int = EDGE_SEED) -> list[dict]:
+    """The edge shapes of phase 3: every band of EDGE_BANDS with 65 or 31
+    pairs and a few hundred rows, batches of one pair, one-row queries, and
+    the tie cases.  Each case: name, band, and int32 q (B, Lq), t (B, Lt),
+    lo (B, Lq+1), tlens (B,)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k, band in enumerate(EDGE_BANDS):
+        B = (65, 31)[k % 2]
+        Lq = (230, 157)[k % 2] if band <= 64 else (90, 61)[k % 2]
+        cases.append(edge_case(rng, f"band{band}_B{B}_Lq{Lq}", band, B, Lq))
+    cases.append(edge_case(rng, "band48_B1_Lq311", 48, 1, 311))
+    cases.append(edge_case(rng, "band256_B1_Lq40", 256, 1, 40))
+    cases.append(edge_case(rng, "band48_B31_Lq1", 48, 31, 1))
+    cases.append(edge_case(rng, "band1_B1_Lq1", 1, 1, 1))
+    cases.append(edge_case(rng, "band200_B65_Lq1", 200, 65, 1))
+    cases += [tie_case(48), tie_case(33), tie_case(7)]
+    return cases
+
+
+def check_edge_shapes() -> int:
+    """Kernel 1 in both modes and kernel 2 on its payload against their plain
+    versions on the card, exact, over edge_cases.  Returns the case count."""
+    import torch
+
+    from savont_tpu_torch.ops.align_torch import sw_forward, sw_forward_reference
+    from savont_tpu_torch.ops.traceback_torch import walk_rle, walk_rle_reference
+
+    cases = edge_cases()
+    for case in cases:
+        band = case["band"]
+        q, t, lo, tl = (torch.from_numpy(case[k]).cuda() for k in ("q", "t", "lo", "tlens"))
+        ops_max = q.shape[1] + t.shape[1]
+        nm_k = sw_forward(q, t, lo, tl, band)
+        pay_k = sw_forward(q, t, lo, tl, band, emit_payload=True)
+        payload, score, ri, bj = pay_k
+        walk_k = walk_rle(payload, lo, score, ri, bj, band, ops_max)
+        torch.cuda.synchronize()
+        nm_r = sw_forward_reference(q, t, lo, tl, band)
+        pay_r = sw_forward_reference(q, t, lo, tl, band, emit_payload=True)
+        walk_r = walk_rle_reference(payload, lo, score, ri, bj, band, ops_max)
+        err = {"sw_forward_nm": max_abs_diff([(nm_k, nm_r)]),
+               "sw_forward_payload": max_abs_diff(zip(pay_k, pay_r)),
+               "sw_walk": max_abs_diff(zip(walk_k, walk_r))}
+        if any(err.values()):
+            raise AssertionError(f"edge case {case['name']}: kernels differ from their plain "
+                                 f"versions: {err}")
+        log(f"  edge {case['name']}: {q.shape[0]} pairs, Lq {q.shape[1]}, band {band}, "
+            f"{int((nm_r[:, 0] == 0).sum())} of score 0: NM, payload, walk == plain (exact)")
+    return len(cases)
+
+
 def max_jump(job) -> int:
     import numpy as np
 
@@ -190,10 +327,11 @@ def max_abs_diff(pairs) -> int:
     return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
 
 
-def check_kernels(jobs, band: int, timed: bool) -> dict:
+def check_kernels(jobs, band: int, time_plain: bool) -> dict:
     """Kernels 1 and 2 against their plain versions on the card, and the
     port's job routes against the port's host oracle.  Returns per kernel
-    the error, and with `timed` the times and the shapes its bound needs."""
+    the error and its time, with `time_plain` the plain version's time too,
+    and the shapes the bounds need."""
     import numpy as np
     import torch
 
@@ -232,32 +370,34 @@ def check_kernels(jobs, band: int, timed: bool) -> dict:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from its plain version at band {band}: {r}")
 
-    if timed:
-        per = {
-            "sw_forward_nm": (lambda: sw_forward(q, t, lo, tl, band),
-                              lambda: sw_forward_reference(q, t, lo, tl, band)),
-            "sw_forward_payload": (
-                lambda: sw_forward(q, t, lo, tl, band, emit_payload=True),
-                lambda: sw_forward_reference(q, t, lo, tl, band, emit_payload=True)),
-            "sw_walk": (
-                lambda: walk_rle(payload, lo, score, ri, bj, band, ops_max),
-                lambda: walk_rle_reference(payload, lo, score, ri, bj, band, ops_max)),
-        }
-        for name, (kern, plain) in per.items():
-            # plain, kernel, kernel, plain: the two orders of one pair
-            p1 = cuda_ms(plain, 1)
-            k1 = cuda_ms(kern, 5)
-            k2 = cuda_ms(kern, 5)
-            p2 = cuda_ms(plain, 1)
-            res[name].update(ms=min(k1, k2), plain_ms=min(p1, p2))
-            log(f"  {name}: kernel {min(k1, k2):.3f} ms ({1e3 * min(k1, k2) / B:.3f} us/pair), "
-                f"plain {min(p1, p2):.1f} ms ({1e3 * min(p1, p2) / B:.1f} us/pair), "
-                f"{B} pairs, Lq {Lq}, band {band}")
-        # what the bounds need: the shapes, and the walked path lengths
-        # (the op counts of the CIGAR runs kernel 2 wrote)
-        cig = walk_k[0].cpu().numpy().view(np.uint32)
-        res["shape"] = {"B": B, "Lq": Lq, "Lt": Lt, "band": band,
-                        "walk_steps": int((cig >> 4).sum())}
+    per = {
+        "sw_forward_nm": (lambda: sw_forward(q, t, lo, tl, band),
+                          lambda: sw_forward_reference(q, t, lo, tl, band)),
+        "sw_forward_payload": (
+            lambda: sw_forward(q, t, lo, tl, band, emit_payload=True),
+            lambda: sw_forward_reference(q, t, lo, tl, band, emit_payload=True)),
+        "sw_walk": (
+            lambda: walk_rle(payload, lo, score, ri, bj, band, ops_max),
+            lambda: walk_rle_reference(payload, lo, score, ri, bj, band, ops_max)),
+    }
+    for name, (kern, plain) in per.items():
+        # plain, kernel, kernel, plain: the two orders of one pair (the
+        # comparison above was the plain version's warm-up)
+        p1 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
+        k1 = cuda_ms(kern, 5)
+        k2 = cuda_ms(kern, 5)
+        p2 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
+        res[name].update(ms=min(k1, k2))
+        line = f"  {name}: kernel {min(k1, k2):.3f} ms ({1e3 * min(k1, k2) / B:.3f} us/pair)"
+        if time_plain:
+            res[name].update(plain_ms=min(p1, p2))
+            line += f", plain {min(p1, p2):.1f} ms ({1e3 * min(p1, p2) / B:.1f} us/pair)"
+        log(f"{line}, {B} pairs, Lq {Lq}, band {band}")
+    # what the bounds need: the shapes, and the walked path lengths
+    # (the op counts of the CIGAR runs kernel 2 wrote)
+    cig = walk_k[0].cpu().numpy().view(np.uint32)
+    res["shape"] = {"B": B, "Lq": Lq, "Lt": Lt, "band": band,
+                    "walk_steps": int((cig >> 4).sum())}
 
     # the port's job routes (kernel 1 + kernel 2 on the card) against the
     # port's host oracle (native/swalign.cpp)
@@ -468,6 +608,7 @@ def main() -> int:
     if oracle is None:
         raise AssertionError("the host C++ oracle (savont_tpu_torch/native/swalign.cpp) did not build")
     log(f"host C++ oracle loaded: {oracle._name}")
+    phase_done("phase 1")
 
     # phase 2: build
     from savont_tpu_torch.ops.build import BUILD_INFO, build_kernels
@@ -488,8 +629,13 @@ def main() -> int:
     jobs = plan(make_pairs(rng, 48, 48), BAND)
     if len(jobs) < N_PAIRS_MIN or not any(max_jump(j) > 2 for j in jobs):
         raise AssertionError(f"job set too small or without band jumps > 2: {len(jobs)} pairs")
-    res = check_kernels(jobs, BAND, timed=True)
-    check_kernels(plan(make_pairs(rng, 8, 32), OPERON_BAND), OPERON_BAND, timed=False)
+    res = check_kernels(jobs, BAND, time_plain=True)
+    res_op = check_kernels(plan(make_pairs(rng, 8, 32), OPERON_BAND), OPERON_BAND,
+                           time_plain=False)
+    phase_done("phase 3, kernels 1 and 2 at the planner's shapes")
+    n_edge = check_edge_shapes()
+    log(f"  edge shapes: {n_edge} cases, bands {EDGE_BANDS}: kernels 1 (both modes) and 2 == plain")
+    phase_done("phase 3, edge shapes")
     roof_err = roofline.check()
     if any(roof_err.values()):
         raise AssertionError(f"roofline kernels differ from their plain versions: {roof_err}")
@@ -508,6 +654,7 @@ def main() -> int:
         f"{bc['even_ok']}, formula A is the roll by 1 {bc['formula_a_ok']}, formula B "
         f"{bc['formula_b_ok']}")
 
+    phase_done("phase 3")
     # phase 4: the probes' timed runs
     roofline.reset_counters()
     roof = roofline.measure()
@@ -567,6 +714,7 @@ def main() -> int:
             f"torch.roll alone (no single call computes roll + N) "
             f"{rl[where]['shfl']['torch_roll_ms']:.4f} ms")
 
+    phase_done("phase 4")
     # phase 5: the main path
     work = Path(tempfile.mkdtemp(prefix="savont_chip_smoke_"))
     try:
@@ -574,6 +722,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    phase_done("phase 5")
     bounds = sw_bounds(res["shape"], roof["int32_tops"] * 1e12)
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -598,6 +747,10 @@ def main() -> int:
                         "library_ms": None, **entry})
     log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
         f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")
+    bounds_op = sw_bounds(res_op["shape"], roof["int32_tops"] * 1e12)
+    log("operon band: " + json.dumps({
+        name: {"ms": res_op[name]["ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        for name, b in bounds_op.items()}) + f" at {json.dumps(res_op['shape'])}")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

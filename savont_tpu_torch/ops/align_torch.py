@@ -28,7 +28,7 @@ from .host_dp import NEG
 LAUNCHES = {"sw_forward_nm": 0, "sw_forward_payload": 0, "sw_walk": 0, "walk_overflow": 0}
 REFERENCE_CALLS = {"sw_forward_nm": 0, "sw_forward_payload": 0, "sw_walk": 0}
 
-MAX_BAND = 256             # the kernel's largest local-memory plane
+MAX_BAND = 256             # 32 lanes x 8 cells, the kernel's widest instantiation
 PAIRS_PER_LAUNCH = 16384   # bounds the packed q/t/lo tensors of one launch
 PAYLOAD_BYTES = 1 << 30    # bounds the (B, Lq, band) u8 payload of one launch
 

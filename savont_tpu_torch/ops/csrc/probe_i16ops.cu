@@ -13,19 +13,25 @@
 //                                                   mask (__vcmplts2 with 0)
 //   op 5 bitsel  m = (y - x - 1) >> 15; (m & x) | (~m & y)
 //   op 6 dpx     max(x + y, z)                      __viaddmax_s16x2
-// Two neighbouring int16 values of a row are one 32-bit word; every thread
-// works on one word and writes the two results sign-extended to int32, as
-// the TPU probe widens them.
+// Two neighbouring int16 values of a row are one 32-bit word, and the two
+// results are written sign-extended to int32, as the TPU probe widens them.
 //
-// With iters > 0 the same kernel is a timed chain, built like roofline.cu's:
+// The element pass (iters == 0, exactly the TPU body) reads 16 bytes of x
+// and of y (and of z for dpx) per thread, eight values in four words, and
+// writes two 16-byte vectors of int32.  Words past the last whole vector,
+// and tensors whose storage is not aligned to 16 bytes, go through the
+// word-wise kernel, one word per thread, in the same launch function.
+//
+// With iters > 0 the word-wise kernel is a timed chain, built like
+// roofline.cu's, one dependent chain per thread:
 //   r = op(x, y, z);  repeat iters times:  y = y + r (mod 2^16);  r = op(r, y, z)
-// The count is a kernel argument and r is stored, so nothing folds; with
-// iters == 0 it is exactly the TPU body.  `python -m
+// The count is a kernel argument and r is stored, so nothing folds.  `python -m
 // savont_tpu_torch.probes.i16ops --sass DIR` counts the instructions of the
 // loop, which says whether an op is one instruction or a sequence.
 //
-// What bounds it: at iters == 0 bytes (4 in, 8 out per word; 10 in for dpx);
-// in the timed chain the SMs' instruction rate.
+// What bounds it: at iters == 0 bytes (per element 4 in, 6 for dpx, and 4 out),
+// which is why the element pass moves 16 bytes per access; in the timed
+// chain the SMs' instruction rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,26 +74,57 @@ probe_i16_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
   out[i] = make_int2((int)(int16_t)(r & 0xffffu), (int)(int16_t)(r >> 16));
 }
 
+__device__ __forceinline__ int4 widen(uint32_t a, uint32_t b) {
+  return make_int4((int)(int16_t)(a & 0xffffu), (int)(int16_t)(a >> 16),
+                   (int)(int16_t)(b & 0xffffu), (int)(int16_t)(b >> 16));
+}
+
+// The element pass: one 16-byte vector of x, y (and z) per thread.
+template <int OP>
+__global__ void __launch_bounds__(1024)
+probe_i16_vec_kernel(const uint4* __restrict__ x, const uint4* __restrict__ y,
+                     const uint4* __restrict__ z, int4* __restrict__ out, int n_vec) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_vec) return;
+  const uint4 a = x[i];
+  const uint4 b = y[i];
+  const uint4 c = OP == 6 ? z[i] : make_uint4(0u, 0u, 0u, 0u);
+  out[2 * i] = widen(apply<OP>(a.x, b.x, c.x), apply<OP>(a.y, b.y, c.y));
+  out[2 * i + 1] = widen(apply<OP>(a.z, b.z, c.z), apply<OP>(a.w, b.w, c.w));
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 // Launches op `op` (0..6, see above) on `stream` over n int16 elements (n
 // even): x, y, z int16 vectors of n (z is read only by op 6), out int32 of n,
-// contiguous device tensors aligned to 8 bytes; `threads` per block.
+// contiguous device tensors, x, y, z aligned to 4 bytes and out to 8;
+// `threads` per block.  With iters == 0 and storage aligned to 16 bytes the
+// whole 16-byte vectors take the element pass and only the words after them
+// the word-wise kernel; otherwise every word takes the word-wise kernel.
 // Allocates nothing and does not synchronise.  Returns cudaGetLastError().
 extern "C" int probe_i16ops_launch(int op, const void* x, const void* y, const void* z,
                                    int* out, int n, int iters, int threads, void* stream) {
   if (n <= 0) return 0;
   if (op < 0 || op >= kOps || (n & 1) || iters < 0 || threads < 32 || threads > 1024)
     return (int)cudaErrorInvalidValue;
-  const int n_words = n / 2;
-  const dim3 grid((n_words + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* xw = (const uint32_t*)x;
-  const uint32_t* yw = (const uint32_t*)y;
-  const uint32_t* zw = (const uint32_t*)z;
-  int2* ow = (int2*)out;
-#define LAUNCH(OP) \
-  probe_i16_kernel<OP><<<grid, threads, 0, s>>>(xw, yw, zw, ow, n_words, iters)
+  const bool wide = iters == 0 && aligned16(x) && aligned16(y) && aligned16(z) && aligned16(out);
+  const int n_vec = wide ? n / 8 : 0;
+  const int n_words = n / 2 - 4 * n_vec;  // what the word-wise kernel takes
+  const dim3 vgrid((n_vec + threads - 1) / threads);
+  const dim3 grid((n_words + threads - 1) / threads);
+  const uint32_t* xw = (const uint32_t*)x + 4 * n_vec;
+  const uint32_t* yw = (const uint32_t*)y + 4 * n_vec;
+  const uint32_t* zw = (const uint32_t*)z + 4 * n_vec;
+  int2* ow = (int2*)out + 4 * n_vec;
+#define LAUNCH(OP)                                                                     \
+  if (n_vec > 0)                                                                       \
+    probe_i16_vec_kernel<OP><<<vgrid, threads, 0, s>>>(                                \
+        (const uint4*)x, (const uint4*)y, (const uint4*)z, (int4*)out, n_vec);         \
+  if (n_words > 0)                                                                     \
+    probe_i16_kernel<OP><<<grid, threads, 0, s>>>(xw, yw, zw, ow, n_words, iters)
   switch (op) {
     case 0: LAUNCH(0); break;
     case 1: LAUNCH(1); break;

@@ -42,6 +42,7 @@ ROWS, COLS = 64, 128
 CARD_TILES = 2048                # tiles of the elementwise timed run
 CHAIN_ITERS = (4096, 65536)      # the difference method's two counts
 CHECK_ITERS = (0, 3)
+QUEUED_RUNS = 20                 # back-to-back launches per elementwise timing
 SEED = 13
 
 LAUNCHES = {f"probe_i16_{k}": 0 for k in OPS}
@@ -61,8 +62,11 @@ def reset_counters() -> None:
 def i16op(op: str, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor | None = None,
           iters: int = 0, threads: int = 256) -> torch.Tensor:
     """Operation `op` over int16 tensors x, y (and z for dpx) of one shape
-    with an even count: int32, same shape.  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the kernel or raise."""
+    with an even count, storage aligned to 4 bytes: int32, same shape.  CPU
+    tensors take the plain PyTorch version; CUDA tensors launch the kernel
+    or raise.  At iters 0 the kernel reads 16-byte vectors where the
+    storage of all three is aligned to 16 bytes, and single words past the
+    last whole vector or on any other alignment."""
     if op not in OPS:
         raise ValueError(f"op {op!r} not in {OPS}")
     if z is None:
@@ -142,17 +146,29 @@ def inputs(tiles: int, device, values: str = "probe") -> tuple[torch.Tensor, ...
                  for v in (x, y, z))
 
 
+def check_inputs(op: str, device) -> list[tuple[torch.Tensor, ...]]:
+    """The (x, y, z) sets check() runs: the probe's inputs on its one
+    (64, 128) tile; wide ones on two tiles; a flat slice of those whose
+    word count is no multiple of four (the element pass takes the whole
+    16-byte vectors, the word-wise kernel the rest); and a view of them
+    offset by 4 bytes, which no 16-byte access may touch.  dpx takes the
+    `sum` inputs instead of the wide ones."""
+    wide = inputs(2, device, "sum" if op == "dpx" else "wide")
+    flat = [v.reshape(-1) for v in wide]
+    return [inputs(1, device, "probe"), wide,
+            tuple(v[: 8 * 1021 + 6] for v in flat),
+            tuple(v[2 : 2 + 8 * 515 + 2] for v in flat)]
+
+
 def check(device="cuda") -> dict[str, int]:
-    """max |kernel - plain version| per op, over the probe's inputs on its one
-    (64, 128) tile and wide ones on two tiles (measure() compares the
-    card-sized run), at iters 0 (the TPU body) and 3 (the chain).  dpx takes
-    the `sum` inputs and no chain: what __viaddmax_s16x2 does with a sum
-    that leaves int16 is not part of the function."""
+    """max |kernel - plain version| per op over check_inputs (measure()
+    compares the card-sized run), at iters 0 (the TPU body) and 3 (the
+    chain).  dpx takes no chain: what __viaddmax_s16x2 does with a sum that
+    leaves int16 is not part of the function."""
     err = {}
     for op in OPS:
         e = 0
-        for values, tiles in (("probe", 1), ("sum" if op == "dpx" else "wide", 2)):
-            x, y, z = inputs(tiles, device, values)
+        for x, y, z in check_inputs(op, device):
             for iters in ((0,) if op == "dpx" else CHECK_ITERS):
                 got = i16op(op, x, y, z, iters)
                 e = max(e, int((got.long() - i16op_reference(op, x, y, z, iters).long()).abs().max()))
@@ -164,7 +180,12 @@ def measure(device="cuda") -> dict:
     """Per op: the elementwise function (iters 0) on one tile and on
     CARD_TILES tiles, kernel and plain version in turns and the library call
     where there is one, their outputs compared (max_abs_err; the library
-    call's must equal the plain version's), with the bound by bytes; and
+    call's must equal the plain version's), with the bound by bytes: "ms",
+    "plain_ms" and "library_ms" are means over QUEUED_RUNS launches queued
+    back to back, "single_ms" and "single_library_ms" one launch between its
+    two events, which holds the wrapper's host time too, "wordwise_ms" the
+    queued mean on a view offset by 4 bytes, which the word-wise kernel
+    takes whole; and
     the rate of the timed chain on a full card (difference method), in
     operations per second counting the op and the add of each step."""
     dev = resolve_device(device)
@@ -178,11 +199,20 @@ def measure(device="cuda") -> dict:
             x, y, z = inputs(tiles, dev, "sum")
             lib = LIBRARY.get(op)
             lib_out = torch.empty(x.shape, dtype=torch.int32, device=dev)
-            t = in_turns(lambda: i16op(op, x, y, z), lambda: i16op_reference(op, x, y, z),
-                         (lambda: lib(x, y, out=lib_out)) if lib is not None else None)
+            fns = (lambda: i16op(op, x, y, z), lambda: i16op_reference(op, x, y, z),
+                   (lambda: lib(x, y, out=lib_out)) if lib is not None else None)
+            t = in_turns(*fns, runs=QUEUED_RUNS)
+            single = in_turns(*fns)
             n = x.numel()
             nbytes = n * ((3 if op == "dpx" else 2) * 2 + 4)
-            r[where] = {**t, "elements": n, **bound(n, nbytes, peak)}
+            # the word-wise kernel on the same values: a view offset by 4 bytes
+            xs, ys, zs = (v.reshape(-1)[2:] for v in (x, y, z))
+            words = in_turns(lambda: i16op(op, xs, ys, zs), lambda: i16op_reference(op, xs, ys, zs),
+                             runs=QUEUED_RUNS)
+            r[where] = {**t, "max_abs_err": max(t["max_abs_err"], single["max_abs_err"],
+                                                words["max_abs_err"]),
+                        "single_ms": single["ms"], "single_library_ms": single["library_ms"],
+                        "wordwise_ms": words["ms"], "elements": n, **bound(n, nbytes, peak)}
         # the chain: a full card of words, one per thread
         cx = torch.from_numpy(np.random.default_rng(SEED).integers(
             -2**14, 2**14, (3, n_chain)).astype(np.int16)).to(dev)

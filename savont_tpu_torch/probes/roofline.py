@@ -174,8 +174,13 @@ def check(device="cuda", iters: int = CHECK_ITERS) -> dict[str, int]:
     return err
 
 
-def launch_ms(fn, reps: int = 3) -> float:
-    """Best of `reps` single calls, CUDA events, after one warm-up call."""
+def launch_ms(fn, reps: int = 3, runs: int = 1) -> float:
+    """Best of `reps` timings, CUDA events, after one warm-up call: each the
+    mean of `runs` calls queued back to back.  With runs == 1 the time
+    between the two events holds the host's time inside `fn` (a wrapper's
+    checks and allocation, tens of microseconds) as well as the kernel's;
+    with more, the queue stays full and the mean is the kernel's own time
+    as long as that exceeds the host's."""
     fn()
     torch.cuda.synchronize()
     best = float("inf")
@@ -183,30 +188,32 @@ def launch_ms(fn, reps: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(runs):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
+        best = min(best, start.elapsed_time(end) / runs)
     return best
 
 
-def in_turns(kernel, plain, library=None) -> dict:
-    """Times of one call each in the order plain, kernel, kernel, plain (the
-    two orders of one pair), then the library call where there is one:
+def in_turns(kernel, plain, library=None, runs: int = 1) -> dict:
+    """Times of one call each (or, with `runs`, of that many back to back)
+    in the order plain, kernel, kernel, plain (the two orders of one pair),
+    then the library call where there is one:
     {"ms", "plain_ms", "library_ms"}, each the better of its runs; and
     "max_abs_err", the largest |kernel - plain version| (and |library call -
     plain version|, which must be 0 for the call to count as the same
     function) over the outputs of these very inputs, so that a time never
     stands beside an output nobody compared."""
-    p1 = launch_ms(plain, reps=1)
-    k1 = launch_ms(kernel)
-    k2 = launch_ms(kernel)
-    p2 = launch_ms(plain, reps=1)
+    p1 = launch_ms(plain, reps=1, runs=runs)
+    k1 = launch_ms(kernel, runs=runs)
+    k2 = launch_ms(kernel, runs=runs)
+    p2 = launch_ms(plain, reps=1, runs=runs)
     want = plain()
     err = max_abs_err(kernel(), want)
     lib_ms = None
     if library is not None:
-        lib_ms = launch_ms(library)
+        lib_ms = launch_ms(library, runs=runs)
         lib_err = max_abs_err(library(), want)
         if lib_err:
             raise AssertionError(f"the library call differs from the plain version by {lib_err}")

@@ -121,12 +121,8 @@ def test_i16op_probe_inputs_are_the_tpu_probe_s():
     np.testing.assert_array_equal(y.numpy(), want_y)
 
 
-@pytest.mark.parametrize("op", i16ops.OPS)
-def test_i16op_chain_and_dpx_against_numpy(op):
-    """The chain (iters > 0) and the dpx body have no TPU counterpart: hold
-    them to numpy's int16 arithmetic, step by step."""
-    x, y, z = (t.numpy() for t in i16ops.inputs(1, "cpu", "sum" if op == "dpx" else "wide"))
-
+def _numpy_i16(op, x, y, z, iters):
+    """numpy's int16 arithmetic, step by step: the op, then the chain."""
     def ap(a, b):
         with np.errstate(over="ignore"):
             return {
@@ -139,13 +135,46 @@ def test_i16op_chain_and_dpx_against_numpy(op):
                 "dpx": lambda: np.maximum(a + b, z),
             }[op]().astype(np.int16)
 
-    iters = 0 if op == "dpx" else 3
     r, yy = ap(x, y), y
     for _ in range(iters):
         yy = (yy + r).astype(np.int16)
         r = ap(r, yy)
+    return r.astype(np.int32)
+
+
+@pytest.mark.parametrize("op", i16ops.OPS)
+def test_i16op_chain_and_dpx_against_numpy(op):
+    """The chain (iters > 0) and the dpx body have no TPU counterpart: hold
+    them to numpy's int16 arithmetic, step by step."""
+    x, y, z = (t.numpy() for t in i16ops.inputs(1, "cpu", "sum" if op == "dpx" else "wide"))
+    iters = 0 if op == "dpx" else 3
     got = i16ops.i16op(op, *i16ops.inputs(1, "cpu", "sum" if op == "dpx" else "wide"), iters)
-    np.testing.assert_array_equal(got.numpy(), r.astype(np.int32))
+    np.testing.assert_array_equal(got.numpy(), _numpy_i16(op, x, y, z, iters))
+
+
+@pytest.mark.parametrize("op", i16ops.OPS)
+def test_i16op_takes_tails_and_offset_views(op):
+    """The inputs the element pass cannot take whole: a word count that is no
+    multiple of four (words past the last 16-byte vector) and a view offset
+    by 4 bytes (no 16-byte access at all).  The wrapper accepts both and, on
+    the CPU, equals numpy; check() runs the same inputs on the card."""
+    sets = i16ops.check_inputs(op, "cpu")
+    whole = sets[1][0]
+    tail, view = sets[2][0], sets[3][0]
+    assert tail.dim() == 1 and (tail.numel() // 2) % 4 != 0 and tail.numel() % 2 == 0
+    assert tail.data_ptr() == whole.data_ptr()
+    assert view.data_ptr() - whole.data_ptr() == 4 and view.is_contiguous()
+    assert (view.numel() // 2) % 4 != 0
+    for x, y, z in sets[2:]:
+        got = i16ops.i16op(op, x, y, z)
+        assert got.shape == x.shape and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), _numpy_i16(op, x.numpy(), y.numpy(), z.numpy(), 0))
+    # 2 bytes off a word, or an odd count: the kernel reads 32-bit words
+    flat = whole.reshape(-1)
+    with pytest.raises(ValueError, match="4 bytes"):
+        i16ops.i16op(op, flat[1:9], flat[1:9], flat[1:9])
+    with pytest.raises(ValueError, match="even"):
+        i16ops.i16op(op, flat[:7], flat[:7], flat[:7])
 
 
 def test_i16ops_check_on_cpu_is_exact():

@@ -210,3 +210,44 @@ def test_max_abs_err_of_the_timed_outputs():
     assert roofline.max_abs_err(torch.tensor([True, False]), torch.tensor([1, 1], dtype=torch.int32)) == 1
     with pytest.raises(AssertionError):
         roofline.max_abs_err(a, a[0])
+
+
+def test_launch_ms_divides_a_queued_run_by_its_count(monkeypatch):
+    """launch_ms times `runs` calls between one pair of events and reports
+    their mean: one warm-up call, then reps x runs calls; in_turns hands its
+    `runs` to every timing and still compares the outputs."""
+    calls = []
+
+    class FakeEvent:
+        def __init__(self, enable_timing):
+            self.at = None
+
+        def record(self):
+            self.at = len(calls)
+
+        def elapsed_time(self, end):
+            return 3.0 * (end.at - self.at)  # 3 ms per call between the events
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert roofline.launch_ms(lambda: calls.append(1), reps=2, runs=5) == 3.0
+    assert len(calls) == 1 + 2 * 5
+    calls.clear()
+    assert roofline.launch_ms(lambda: calls.append(1)) == 3.0
+    assert len(calls) == 1 + 3
+
+    out = torch.tensor([1, 2, 3], dtype=torch.int32)
+    made = {"kernel": 0, "plain": 0, "library": 0}
+
+    def fn(name, value):
+        def f():
+            made[name] += 1
+            return value
+        return f
+
+    r = roofline.in_turns(fn("kernel", out), fn("plain", out.clone()), fn("library", out.clone()), runs=4)
+    assert r == {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0}
+    # warm-up + reps x runs per timing, and one more call each for the comparison
+    assert made == {"kernel": 2 * (1 + 3 * 4) + 1, "plain": 2 * (1 + 4) + 1, "library": (1 + 3 * 4) + 1}
+    with pytest.raises(AssertionError, match="library call differs"):
+        roofline.in_turns(fn("kernel", out), fn("plain", out), fn("library", out + 1))
