@@ -26,13 +26,22 @@ failure; nothing catches it, so the exit code is non-zero):
                  and shorter than the corridor, band jumps up to and past
                  the band, codes 4 / 5 / 6, a pair of score 0, ties across
                  rows and lanes) through both modes of kernel 1 and through
-                 kernel 2.  Tolerance 0 throughout: every output is an
-                 integer;
+                 kernel 2; and kernel 2 alone on walk_edge_cases: start rows on the edges of its
+                 shared-memory windows, payloads at every alignment and
+                 flush with the end of their storage, wild payloads, the
+                 stage-4 mix of score-0 rows, a walk cut by ops_max, CIGARs
+                 of maxrun - 1, maxrun and maxrun + 1 runs for maxrun 4, 5
+                 and 512.  Kernel 2 is timed as its launch alone (20 queued
+                 launches, and one), through walk_rle with its validation,
+                 and on the stage-4 mix.
+                 Tolerance 0 throughout: every output is an integer;
   4. probes    - the timed runs of the integer roofline probe
                  (savont_tpu_torch.probes.roofline.measure: the card's int32
                  max/add rate, which bounds kernel 1) and of the bitcast,
-                 i16ops and roll probes; the outputs of the timed launches
-                 must equal their plain versions' too, at tolerance 0;
+                 i16ops and roll probes, each time the mean of 20 launches
+                 queued back to back with the single launch's beside it; the
+                 outputs of the timed launches must equal their plain
+                 versions' too, at tolerance 0;
   5. main path - a seed-pinned 5,000-read fastq through
                  `savont_tpu_torch.cli.main(["asv", ..., "--device", "cuda"])`
                  (what `python -m savont_tpu_torch` runs) with the default
@@ -43,7 +52,9 @@ failure; nothing catches it, so the exit code is non-zero):
                  it), every ASV must be at NM=0 against the templates,
                  kernels 1 (both modes) and 2 launched by the device routes,
                  no plain version called, no job handed to the per-job
-                 consumers, the device EM within 1e-4 of the host EM.  Then
+                 consumers, the device EM within 1e-4 of the host EM; the
+                 device time of kernels 1 and 2 inside each device route
+                 (kernel_ms) is printed beside the route's seconds.  Then
                  the earlier path, `--stage4-backend host --stage7-backend
                  host`, on a 1,500-read sample, held to its own digests.
 The last three lines of stdout are nvidia-smi's name / power limit, the
@@ -72,6 +83,15 @@ TEMPLATE_LEN = 1450
 SEED = 2026
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MAXRUN = 512
+# a shared-memory load's round trip, in cycles, and the SM clock it is turned
+# into time at, both assumed and not measured here: about 30 cycles is what
+# the pointer-chasing microbenchmark of Luo et al., "Dissecting the NVIDIA
+# Hopper Architecture through Microbenchmarking and Multiple Level Analysis"
+# (arXiv:2402.13499, 2024, its table of memory latencies), reads for shared
+# memory on an H100; 1.98 GHz is the largest SM clock nvidia-smi reports for
+# the H100 SXM
+LDS_ROUND_TRIP_CYCLES = 30
+SM_CLOCK_HZ = 1.98e9
 EDGE_BANDS = (1, 7, 32, 33, 48, 64, 100, 128, 200, 256)
 EDGE_SEED = 2027
 # integer instructions per DP cell of the sequential recurrence: the count
@@ -285,13 +305,179 @@ def edge_cases(seed: int = EDGE_SEED) -> list[dict]:
     return cases
 
 
+def walk_window_rows(band: int) -> int:
+    """Payload rows per shared-memory window of kernel 2 (sw_walk.cu:
+    kWindowBytes / band, between 1 and kMaxRows)."""
+    return min(32, max(1, 4096 // band))
+
+
+def walk_case(rng, name: str, band: int, B: int, Lq: int, wild: bool = False, **over) -> dict:
+    """Raw inputs of kernel 2 that kernel 1 need not have made: the walk is
+    defined on any payload bytes.  Each of the six payload bits is drawn on
+    its own: calm walks are long diagonals with short E and F runs and
+    cross every window (under band 16 nearly pure diagonals, which a narrow
+    band needs to get that far); `wild` ones change state at every other
+    cell.  Rows advance by 0 to 3, or with `drift` by 0, 1 or 2 at 15 / 70 /
+    15%, so that a diagonal run leaves a narrow band midway.  The start rows
+    go round the window's edges (row 1, one under, at and one over W, 2W and
+    3W, the last row), the start cells lie in the band's middle half, pair 5
+    has score 0 and pair 11 a negative one.  `over` sets ops_max, maxrun,
+    drift, offset (the bytes between the start of the payload's storage and
+    its first byte, so that no pair is 16-byte aligned) and zero_rows (score
+    0 except every third pair, the stage-4 route's mix)."""
+    import numpy as np
+
+    W = walk_window_rows(band)
+    # use_g, g_zero, g_f, exitE, from_h, mismatch
+    narrow = band < 16 and not wild
+    p_bits = ((0.6, 0.01, 0.3, 0.5, 0.5, 0.5) if wild else
+              (0.999, 0.001, 0.002, 0.6, 0.6, 0.05) if narrow else
+              (0.97, 0.001, 0.03, 0.6, 0.6, 0.05))
+    payload = np.zeros((B, Lq, band), np.uint8)
+    for k, p in enumerate(p_bits):
+        payload |= (rng.random((B, Lq, band)) < p).astype(np.uint8) << k
+    dl = rng.choice(4, (B, Lq), p=[0.15, 0.7, 0.15, 0] if over.get("drift") else
+                    [0.002, 0.996, 0.002, 0] if narrow else [0.05, 0.9, 0.03, 0.02])
+    lo = np.concatenate([rng.integers(0, 4, (B, 1)), dl], axis=1).cumsum(axis=1)
+    edges = [r for r in (1, 2, W - 1, W, W + 1, 2 * W - 1, 2 * W, 2 * W + 1, 3 * W, 3 * W + 1,
+                         Lq - 1, Lq) if 1 <= r <= Lq]
+    ri = np.array([edges[b % len(edges)] for b in range(B)])
+    bj = rng.integers(band // 4, max(3 * band // 4, band // 4 + 1), B)
+    score = np.ones(B, int)
+    score[5:B:12] = 0
+    score[11:B:12] = -3
+    if over.get("zero_rows"):
+        score[np.arange(B) % 3 != 0] = 0
+    i32 = np.int32
+    return {"name": name, "band": band, "payload": payload, "lo": lo.astype(i32),
+            "score": score.astype(i32), "ri": ri.astype(i32), "bj": bj.astype(i32),
+            "ops_max": over.get("ops_max", 600), "maxrun": over.get("maxrun", MAXRUN),
+            "offset": over.get("offset", 0)}
+
+
+def walk_runs_case(name: str, band: int, maxrun: int) -> dict:
+    """Six pairs whose payload bits are laid along a chosen path, so that the
+    CIGAR has exactly maxrun - 1, maxrun and maxrun + 1 runs (the last an
+    overflow), each once with the path running into row 0 and once stopped
+    three rows above it by a cell of G = 0.  Forward, the runs are M, I, M, D,
+    M, I, ... of one or two ops each; every advance is 1, so an insertion
+    moves the band cell up by one and a deletion back.  Returns the inputs of
+    walk_case, and n_runs (6,), what the walk must count."""
+    import numpy as np
+
+    M, I, D = 0, 1, 2
+    targets = [maxrun - 1, maxrun, maxrun + 1] * 2
+    Lq = 2 * (maxrun + 1) + 8
+    B = len(targets)
+    payload = np.zeros((B, Lq, band), np.uint8)
+    ri = np.zeros(B, int)
+    bj0 = band // 2
+    for b, n in enumerate(targets):
+        runs = [(M, 1 + k % 4 // 2) if k % 2 == 0 else ((I, D)[k // 2 % 2], 1 + k % 3 // 2)
+                for k in range(n)]
+        back = [op for op, length in reversed(runs) for _ in range(length)]
+        rows = sum(op != D for op in back)
+        spare = 3 * (b >= 3)  # rows left above the path: it ends on a G = 0 cell
+        r, j, st = rows + spare, bj0, "H"
+        ri[b] = r
+        for k, op in enumerate(back):
+            nxt = back[k + 1] if k + 1 < len(back) else None
+            cell = payload[b, r - 1]
+            if op == M:
+                cell[j] |= (st == "H") * 1 | (k % 7 == 0) * 32
+                r, st = r - 1, "H"
+            elif op == I:
+                cell[j] |= (st == "H") * 1 | (st != "F") * 4 | (nxt != I) * 16
+                r, j, st = r - 1, j + 1, "F" if nxt == I else "H"
+            else:
+                if st == "G":
+                    raise AssertionError("a deletion cannot follow the exit of a deletion")
+                cell[j] |= (nxt != D) * 8
+                j, st = j - 1, "E" if nxt == D else "G"
+        if r > 0:
+            payload[b, r - 1, j] |= 1 | 2  # the last op was a match: state H, use_g, G = 0
+    i32 = np.int32
+    return {"name": name, "band": band, "payload": payload,
+            "lo": np.tile(np.arange(Lq + 1), (B, 1)).astype(i32), "score": np.ones(B, i32),
+            "ri": ri.astype(i32), "bj": np.full(B, bj0, i32), "ops_max": max(3 * Lq, 600),
+            "maxrun": maxrun, "offset": 0, "n_runs": np.array(targets, i32)}
+
+
+def walk_edge_cases(seed: int = EDGE_SEED + 1) -> list[dict]:
+    """The edge shapes of kernel 2 alone: every band class with start rows on
+    the window edges and payloads at every alignment, wild payloads,
+    diagonal runs that drift out of a narrow band, the stage-4 mix (two
+    thirds of the rows at score 0), a walk cut by ops_max in the middle of a
+    window (with a start row of 0, which kernel 1 never gives), and CIGARs
+    of maxrun - 1, maxrun and maxrun + 1 runs for maxrun 4, 5 (rows that are
+    no multiple of 16 bytes) and 512.  Each case: name,
+    band, payload (B, Lq, band) uint8, int32 lo (B, Lq+1), score, ri, bj (B,),
+    ops_max, maxrun, offset."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k, band in enumerate((1, 7, 33, 48, 100, 128, 200, 256)):
+        Lq = 3 * walk_window_rows(band) + 5
+        cases.append(walk_case(rng, f"walk_band{band}", band, 24, Lq,
+                               offset=(0, 1, 5, 8, 15, 3, 0, 7)[k]))
+    cases.append(walk_case(rng, "walk_wild_band48", 48, 65, 101, wild=True, offset=13))
+    cases.append(walk_case(rng, "walk_wild_band7_maxrun5", 7, 31, 131, wild=True, maxrun=5,
+                           offset=2))
+    cases.append(walk_case(rng, "walk_drift_band7", 7, 65, 101, drift=True, offset=11))
+    cases.append(walk_case(rng, "walk_mix_band48", 48, 96, 101, zero_rows=True))
+    cut = walk_case(rng, "walk_opsmax40_band48", 48, 24, 101, ops_max=40, offset=9)
+    cut["ri"][:2] = 0  # reads row 0 for one op
+    cases.append(cut)
+    cases += [walk_runs_case(f"walk_runs_maxrun{m}", 48, m) for m in (4, 5, 512)]
+    return cases
+
+
 def check_edge_shapes() -> int:
     """Kernel 1 in both modes and kernel 2 on its payload against their plain
-    versions on the card, exact, over edge_cases.  Returns the case count."""
+    versions on the card, exact, over edge_cases; then kernel 2 alone over
+    walk_edge_cases.  Returns the case count."""
     import torch
 
     from savont_tpu_torch.ops.align_torch import sw_forward, sw_forward_reference
-    from savont_tpu_torch.ops.traceback_torch import walk_rle, walk_rle_reference
+    from savont_tpu_torch.ops.traceback_torch import (
+        walk_rle, walk_rle_launch, walk_rle_reference,
+    )
+
+    walk_cases = walk_edge_cases()
+    for case in walk_cases:
+        band, off = case["band"], case["offset"]
+        # the payload as a view that ends with its storage
+        storage = torch.empty(off + case["payload"].size, dtype=torch.uint8, device="cuda")
+        payload = storage[off:].view(case["payload"].shape)
+        payload.copy_(torch.from_numpy(case["payload"]))
+        args = (payload, *(torch.from_numpy(case[k]).cuda() for k in ("lo", "score", "ri", "bj")),
+                band, case["ops_max"], case["maxrun"])
+        got = walk_rle(*args)
+        torch.cuda.synchronize()
+        want = walk_rle_reference(*args)
+        err = max_abs_diff(zip(got, want))
+        if err:
+            raise AssertionError(f"edge case {case['name']}: kernel 2 differs from its plain "
+                                 f"version by {err}")
+        n_runs = want[1][:, 0]
+        log(f"  edge {case['name']}: {payload.shape[0]} pairs, Lq {payload.shape[1]}, band {band}, "
+            f"payload {payload.data_ptr() % 16} bytes past a 16-byte line, ops_max "
+            f"{case['ops_max']}, maxrun {case['maxrun']}, {int((args[2] <= 0).sum())} of score "
+            f"<= 0, {int((n_runs > case['maxrun']).sum())} overflowed, longest path "
+            f"{int((want[1][:, 2] - want[1][:, 1]).max())} rows: walk == plain (exact)")
+    # a warp keeps ops_max op bytes in shared memory: at 150,000 one warp is a
+    # block and the walk is still exact; at 300,000 no block holds them, and
+    # the wrapper says so instead of launching
+    big = (*args[:6], 150_000, case["maxrun"])
+    if max_abs_diff(zip(walk_rle(*big), walk_rle_reference(*big))):
+        raise AssertionError("kernel 2 differs from its plain version at ops_max 150,000")
+    try:
+        walk_rle_launch(*args[:6], 300_000, case["maxrun"])
+    except ValueError as e:
+        log(f"  edge ops_max 150,000: walk == plain (exact); ops_max 300,000 refused: {e}")
+    else:
+        raise AssertionError("kernel 2 took an ops_max that no block's shared memory holds")
 
     cases = edge_cases()
     for case in cases:
@@ -314,7 +500,7 @@ def check_edge_shapes() -> int:
                                  f"versions: {err}")
         log(f"  edge {case['name']}: {q.shape[0]} pairs, Lq {q.shape[1]}, band {band}, "
             f"{int((nm_r[:, 0] == 0).sum())} of score 0: NM, payload, walk == plain (exact)")
-    return len(cases)
+    return len(cases) + len(walk_cases)
 
 
 def max_jump(job) -> int:
@@ -340,8 +526,9 @@ def check_kernels(jobs, band: int, time_plain: bool) -> dict:
     )
     from savont_tpu_torch.ops.host_dp import run_jobs_host, run_jobs_nm_host
     from savont_tpu_torch.ops.traceback_torch import (
-        sw_traceback_jobs, walk_rle, walk_rle_reference,
+        sw_traceback_jobs, walk_rle, walk_rle_launch, walk_rle_reference,
     )
+    from savont_tpu_torch.probes.roofline import QUEUED_RUNS, launch_ms
 
     order = sorted(range(len(jobs)), key=lambda i: len(jobs[i].qcodes))
     sjobs = [jobs[i] for i in order]
@@ -370,22 +557,27 @@ def check_kernels(jobs, band: int, time_plain: bool) -> dict:
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{name} differs from its plain version at band {band}: {r}")
 
+    # kernel 2 is timed as its launch alone: the public wrapper's validation
+    # reads the start cells back and waits for the device
+    walk_args = (payload, lo, score, ri, bj, band, ops_max)
     per = {
         "sw_forward_nm": (lambda: sw_forward(q, t, lo, tl, band),
                           lambda: sw_forward_reference(q, t, lo, tl, band)),
         "sw_forward_payload": (
             lambda: sw_forward(q, t, lo, tl, band, emit_payload=True),
             lambda: sw_forward_reference(q, t, lo, tl, band, emit_payload=True)),
-        "sw_walk": (
-            lambda: walk_rle(payload, lo, score, ri, bj, band, ops_max),
-            lambda: walk_rle_reference(payload, lo, score, ri, bj, band, ops_max)),
+        "sw_walk": (lambda: walk_rle_launch(*walk_args), lambda: walk_rle_reference(*walk_args)),
     }
     for name, (kern, plain) in per.items():
         # plain, kernel, kernel, plain: the two orders of one pair (the
-        # comparison above was the plain version's warm-up)
+        # comparison above was the plain version's warm-up); kernel 2, a
+        # tenth of kernel 1's time, as the mean of QUEUED_RUNS launches
+        # queued back to back
         p1 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
-        k1 = cuda_ms(kern, 5)
-        k2 = cuda_ms(kern, 5)
+        if name == "sw_walk":
+            k1, k2 = (launch_ms(kern, reps=2, runs=QUEUED_RUNS) for _ in range(2))
+        else:
+            k1, k2 = cuda_ms(kern, 5), cuda_ms(kern, 5)
         p2 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
         res[name].update(ms=min(k1, k2))
         line = f"  {name}: kernel {min(k1, k2):.3f} ms ({1e3 * min(k1, k2) / B:.3f} us/pair)"
@@ -393,11 +585,32 @@ def check_kernels(jobs, band: int, time_plain: bool) -> dict:
             res[name].update(plain_ms=min(p1, p2))
             line += f", plain {min(p1, p2):.1f} ms ({1e3 * min(p1, p2) / B:.1f} us/pair)"
         log(f"{line}, {B} pairs, Lq {Lq}, band {band}")
-    # what the bounds need: the shapes, and the walked path lengths
-    # (the op counts of the CIGAR runs kernel 2 wrote)
-    cig = walk_k[0].cpu().numpy().view(np.uint32)
-    res["shape"] = {"B": B, "Lq": Lq, "Lt": Lt, "band": band,
-                    "walk_steps": int((cig >> 4).sum())}
+    # beside kernel 2's queued time: one launch between its events (which
+    # holds the wrapper's host time), the public wrapper with its validation,
+    # and the stage-4 route's mix (a seeded third of the rows walk; the others
+    # have score 0), its output compared as well
+    walks = torch.from_numpy(np.random.default_rng(EDGE_SEED).random(B) < 1 / 3).to(score.device)
+    mix_args = (payload, lo, torch.where(walks, score, 0), *walk_args[3:])
+    res["sw_walk"].update(
+        single_ms=launch_ms(per["sw_walk"][0]),
+        checked_ms=launch_ms(lambda: walk_rle(*walk_args)),
+        mix_ms=launch_ms(lambda: walk_rle_launch(*mix_args), runs=QUEUED_RUNS))
+    err = max_abs_diff(zip(walk_rle_launch(*mix_args), walk_rle_reference(*mix_args)))
+    if err:
+        raise AssertionError(f"sw_walk on the stage-4 mix differs from its plain version at "
+                             f"band {band} by {err}")
+    w = res["sw_walk"]
+    log(f"  sw_walk, launch alone: {w['ms']:.4f} ms queued ({QUEUED_RUNS} launches), "
+        f"{w['single_ms']:.4f} ms single, {w['checked_ms']:.4f} ms through walk_rle with its "
+        f"validation; stage-4 mix ({B - int(walks.sum())} of {B} rows at score 0) "
+        f"{w['mix_ms']:.4f} ms queued")
+    # what the bounds need: the shapes, the walked path lengths (the op
+    # counts of the CIGAR runs kernel 2 wrote) and the rows under the start
+    # cells, which are the rows kernel 2 streams
+    steps = (walk_k[0].cpu().numpy().view(np.uint32) >> 4).sum(axis=1)
+    res["shape"] = {"B": B, "Lq": Lq, "Lt": Lt, "band": band, "walk_steps": int(steps.sum()),
+                    "walk_max_steps": int(steps.max()),
+                    "walk_rows": int(ri[score > 0].sum())}
 
     # the port's job routes (kernel 1 + kernel 2 on the card) against the
     # port's host oracle (native/swalign.cpp)
@@ -429,9 +642,14 @@ def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
     """Least time for kernels 1 and 2 at these shapes: the larger of the
     integer operations over the measured int32 rate and the bytes (each
     input read once, each output written once) over the card's memory
-    rate.  Kernel 2 is a latency-bound sequential walk; its bound is its
-    bytes: one payload byte and one lo word per walked step, the start
-    cells, and the CIGAR rows and meta it writes."""
+    rate.  Kernel 2's bound is its bytes: one payload byte and one lo word
+    per walked step, the start cells, and the CIGAR rows and meta it writes.
+    Beside the bound, and not part of it, two times that say what the
+    warp-per-pair design can reach: `whole_rows_ms`, the bytes it streams
+    (every payload row under a start cell, whole, and its lo word) over the
+    memory rate, and `chain_floor_ms`, the longest walk's steps, each waiting
+    for one shared-memory load (LDS_ROUND_TRIP_CYCLES at SM_CLOCK_HZ), which
+    no number of warps shortens."""
     B, Lq, Lt, band = shape["B"], shape["Lq"], shape["Lt"], shape["band"]
     cells = B * Lq * band
     inputs = 4 * (B * Lq + B * Lt + B * (Lq + 1) + B)
@@ -443,7 +661,10 @@ def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "cells": cells}
     walk_bytes = shape["walk_steps"] * 5 + 12 * B + 4 * B * MAXRUN + 24 * B
-    out["sw_walk"] = {"bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    out["sw_walk"] = {
+        "bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "whole_rows_ms": shape["walk_rows"] * (band + 4) / HBM_BYTES_PER_S * 1e3,
+        "chain_floor_ms": shape["walk_max_steps"] * LDS_ROUND_TRIP_CYCLES / SM_CLOCK_HZ * 1e3}
     return out
 
 
@@ -561,13 +782,18 @@ def main_path(work: Path, rng) -> dict:
         raise AssertionError(f"the device routes did not carry the sample: {mesh['routes']}")
     if s4["fallbacks"] or s7["fallbacks"]:
         raise AssertionError(f"the flat planner declined work on the sample: {mesh['routes']}")
+    if not (s4["kernel_ms"] > 0 and s7["kernel_ms"] > 0):
+        raise AssertionError(f"no kernel time was read inside the device routes: {mesh['routes']}")
     if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
         raise AssertionError(f"device EM differs from the host EM by {s7['em_max_abs_diff']}")
     log(f"main path (device routes): {N_READS} reads, {n_asvs} ASVs all NM=0, outputs equal the "
         f"host run's pinned digests; savont_tpu_torch asv --device cuda {mesh['wall_s']:.2f} s warm "
         f"(first run {warm['wall_s']:.2f} s; wall, kernel build excluded); launches "
         f"{mesh['launches']}; plain calls {mesh['plain_calls']}")
-    log(f"  stage seconds {mesh['stage_s']}; device routes {json.dumps(mesh['routes'])}; "
+    log(f"  stage seconds {mesh['stage_s']}; device routes, with the device milliseconds of "
+        f"kernels 1 and 2 inside each (kernel_ms: {s4['kernel_ms']:.3f} of "
+        f"{1e3 * s4['seconds']:.1f} ms in stage 4, {s7['kernel_ms']:.3f} of "
+        f"{1e3 * s7['seconds']:.1f} ms in stage 7), {json.dumps(mesh['routes'])}; "
         f"per-job routes {mesh['per_job_route_s']}; {s4['overflow']} pairs overflowed kernel 2 "
         f"and were counted on the host; EM {s7['em_iters']} iterations, max |host - device| "
         f"{s7['em_max_abs_diff']:.3e} (tolerance {EM_TOLERANCE})")
@@ -634,7 +860,8 @@ def main() -> int:
                            time_plain=False)
     phase_done("phase 3, kernels 1 and 2 at the planner's shapes")
     n_edge = check_edge_shapes()
-    log(f"  edge shapes: {n_edge} cases, bands {EDGE_BANDS}: kernels 1 (both modes) and 2 == plain")
+    log(f"  edge shapes: {n_edge} cases, bands {EDGE_BANDS}: kernels 1 (both modes) and 2 == "
+        f"plain, and kernel 2 alone on the window, alignment and maxrun edges")
     phase_done("phase 3, edge shapes")
     roof_err = roofline.check()
     if any(roof_err.values()):
@@ -671,7 +898,9 @@ def main() -> int:
         r = roof[k]
         log(f"  roofline {k}: card {r['card']['tops']:.3f} T ops/s "
             f"({r['card']['tvalues']:.3f} T values/s), one SM {r['one_sm']['tops']:.4f} T ops/s; "
-            f"{roofline.PLAIN_ITERS} iterations: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms")
+            f"{roofline.PLAIN_ITERS} iterations: kernel {r['ms']:.4f} ms queued "
+            f"({roofline.QUEUED_RUNS} launches), {r['single_ms']:.4f} ms single, plain "
+            f"{r['plain_ms']:.1f} ms")
     log(f"roofline: int32 max/add {roof['int32_tops']:.3f} T ops/s measured, "
         f"{roof['published_dispatch_tops']:.3f} T instructions/s published dispatch rate "
         f"({roof['sms']} SMs x {roofline.DISPATCH_LANES_PER_SM} x max SM clock); "
@@ -707,10 +936,12 @@ def main() -> int:
             f"{json.dumps(i16[k]['card'])}; one tile {i16[k]['tile']['ms']:.4f} ms")
     for where in ("tile", "card"):
         log(f"  roll, {roll.STEPS} steps, {where}: " + "; ".join(
-            f"{m} {rl[where][m]['us_per_step']:.4f} us/step" for m in roll.MODES)
+            f"{m} {rl[where][m]['us_per_step']:.4f} us/step ({rl[where][m]['ms']:.4f} ms queued, "
+            f"{rl[where][m]['single_ms']:.4f} ms single)" for m in roll.MODES)
             + "; roll over add: " + ", ".join(
             f"{m} {rl[where][m]['roll_cost_us']:.4f} us" for m in roll.MODES[1:])
-            + f"; torch.add, the library call of add, {rl[where]['add']['library_ms']:.4f} ms; "
+            + f"; torch.add, the library call of add, {rl[where]['add']['library_ms']:.4f} ms queued, "
+            f"{rl[where]['add']['single_library_ms']:.4f} ms single; "
             f"torch.roll alone (no single call computes roll + N) "
             f"{rl[where]['shfl']['torch_roll_ms']:.4f} ms")
 
@@ -745,11 +976,12 @@ def main() -> int:
         # one call that computes their function where there is one
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "library_ms": None, **entry})
+    log("sw_walk: " + json.dumps({k: v for k, v in res["sw_walk"].items() if k != "max_abs_err"}))
     log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
         f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")
     bounds_op = sw_bounds(res_op["shape"], roof["int32_tops"] * 1e12)
     log("operon band: " + json.dumps({
-        name: {"ms": res_op[name]["ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        name: {**{k: v for k, v in res_op[name].items() if k.endswith("_ms") or k == "ms"}, **b}
         for name, b in bounds_op.items()}) + f" at {json.dumps(res_op['shape'])}")
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -14,6 +14,8 @@ the CPU, and for CUDA tensors launches the kernel or raises.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -37,6 +39,50 @@ def reset_counters() -> None:
     for d in (LAUNCHES, REFERENCE_CALLS):
         for k in d:
             d[k] = 0
+
+
+# the (start, end) CUDA events of the launches of kernels 1 and 2 made inside
+# a kernel_events() block; None outside one
+_EVENTS: list | None = None
+
+
+@contextmanager
+def kernel_events():
+    """Collect a pair of CUDA events around every launch of kernels 1 and 2
+    made inside the block, and yield the list.  Recording costs no
+    synchronisation; read the list with events_ms once the work has been
+    fetched.  On the CPU nothing is launched and the list stays empty."""
+    global _EVENTS
+    outer, _EVENTS = _EVENTS, []
+    try:
+        yield _EVENTS
+    finally:
+        _EVENTS = outer
+
+
+def events_ms(events: list) -> float:
+    """Milliseconds of device time between the events of each pair, summed.
+    Call it after a fetch that followed the last launch: the events have
+    then completed and this waits for nothing."""
+    if events:
+        events[-1][1].synchronize()
+    return float(sum(start.elapsed_time(end) for start, end in events))
+
+
+@contextmanager
+def timed_launch(device):
+    """The launch context of a kernel wrapper: `device` current, and inside a
+    kernel_events() block an event recorded just before and just after."""
+    with torch.cuda.device(device):
+        if _EVENTS is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        _EVENTS.append((start, end))
 
 
 def jobs_to_tensors(jobs, device) -> tuple[torch.Tensor, ...]:
@@ -192,7 +238,7 @@ def sw_forward(q, t, lo, tlens, band: int, emit_payload: bool = False, device=No
     else:
         out = torch.empty((B, 4), dtype=torch.int32, device=q.device)
         payload = None
-    with torch.cuda.device(q.device):
+    with timed_launch(q.device):
         rc = lib.sw_forward_launch(
             q.data_ptr(), t.data_ptr(), lo.data_ptr(), tlens.data_ptr(),
             B, Lq, t.shape[1], band, MATCH, MISMATCH, GAP_OPEN, GAP_EXT,

@@ -55,6 +55,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,         # B, Lq, band, ops_max, maxrun
         p, p, p,               # cigar, meta, stream
     ]
+    lib.sw_walk_warp_bytes.restype = i
+    lib.sw_walk_warp_bytes.argtypes = [i, i, i]  # band, ops_max, maxrun
     lib.roofline_launch.restype = i
     lib.roofline_launch.argtypes = [
         i, p, p, p,            # kind, x0, y0, out

@@ -19,6 +19,7 @@ from .align_torch import (
     jobs_to_tensors,
     length_chunks,
     sw_forward,
+    timed_launch,
 )
 from .build import build_kernels
 from .host_dp import run_jobs_host
@@ -56,7 +57,10 @@ def walk_rle(payload, lo, score, ri, bj, band: int, ops_max: int, maxrun: int = 
     past n_runs (the whole row zero when n_runs > maxrun, an overflow), and
     meta (B, 6) int32 = [n_runs, q_start, q_end, t_start, t_end, nm].
     CPU tensors take the plain PyTorch version; CUDA tensors launch kernel
-    2 or raise."""
+    2 or raise (also where ops_max and maxrun exceed what the kernel holds
+    in shared memory: see walk_rle_launch).  The inputs are validated first,
+    which reads the start cells back and so waits for the device;
+    walk_rle_launch is the launch alone."""
     if device is not None:
         dev = resolve_device(device)
         payload, lo, score, ri, bj = (x.to(dev) for x in (payload, lo, score, ri, bj))
@@ -66,11 +70,28 @@ def walk_rle(payload, lo, score, ri, bj, band: int, ops_max: int, maxrun: int = 
         return walk_rle_reference(payload, lo, score, ri, bj, band, ops_max, maxrun)
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
+    return walk_rle_launch(payload, lo, score, ri, bj, band, ops_max, maxrun)
+
+
+def walk_rle_launch(payload, lo, score, ri, bj, band: int, ops_max: int, maxrun: int = MAXRUN):
+    """Launch kernel 2 on CUDA tensors that walk_rle's checks have passed or
+    would pass, without checking them and without waiting for the device:
+    what walk_rle does after its validation, and what a timing of the kernel
+    queues back to back.  A pair's warp keeps ops_max op bytes, maxrun run
+    words and three payload windows in shared memory, so the three sizes are
+    bounded together by a block's 227 KB (ops_max near 200,000 at maxrun 512,
+    far above any read pair's Lq + Lt); larger ones raise here."""
+    if payload.device.type != "cuda":
+        raise ValueError(f"walk_rle_launch needs CUDA tensors, got {payload.device}")
     lib = build_kernels()
     B, Lq, _ = payload.shape
+    if lib.sw_walk_warp_bytes(band, ops_max, maxrun) < 0:
+        raise ValueError(f"band {band}, ops_max {ops_max}, maxrun {maxrun}: each must be at "
+                         f"least 1, and 3 windows of payload + ops_max bytes + 4 * maxrun "
+                         f"bytes must fit a block's 227 KB of shared memory")
     cigar = torch.empty((B, maxrun), dtype=torch.int32, device=payload.device)
     meta = torch.empty((B, 6), dtype=torch.int32, device=payload.device)
-    with torch.cuda.device(payload.device):
+    with timed_launch(payload.device):
         rc = lib.sw_walk_launch(
             payload.data_ptr(), lo.data_ptr(), score.data_ptr(), ri.data_ptr(),
             bj.data_ptr(), B, Lq, band, ops_max, maxrun, cigar.data_ptr(),
@@ -86,7 +107,9 @@ def walk_rle_reference(payload, lo, score, ri, bj, band: int, ops_max: int,
                        maxrun: int = MAXRUN):
     """Plain PyTorch version of kernel 2: the walk state machine stepped for
     all pairs at once (a Python loop over steps, with masks), then the
-    run-length encoding of sw_traceback_from_payload."""
+    run-length encoding of sw_traceback_from_payload.  A pair that starts in
+    row 0 with a positive score (kernel 1 gives none) reads row 0 and stops
+    after one op."""
     dev = payload.device
     B, Lq, _ = payload.shape
     flat = payload.reshape(B, Lq * band)

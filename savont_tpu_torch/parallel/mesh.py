@@ -41,7 +41,8 @@ from ..ops import traceback_torch
 from ..ops.align import resolve_band
 from ..ops.align_batch import _plan_soa_indexed, align_pairs_nm_values_indexed, plan_job
 from ..ops.align_torch import (
-    LAUNCHES, gather_rows, length_chunks_lens, plan_tensors, plan_to_device, sw_forward,
+    LAUNCHES, events_ms, gather_rows, kernel_events, length_chunks_lens, plan_tensors,
+    plan_to_device, sw_forward,
 )
 from ..ops.em import em_abundances_torch
 from ..ops.encode import _RC_TABLE
@@ -53,15 +54,18 @@ log = logging.getLogger("savont")
 EM_CONV = 0.01  # the fixed point stops below EM_CONV / assigned reads, as the host EM does
 
 # per route: calls, calls that fell to the per-job consumers (the planner
-# returned None), wall seconds inside, plan jobs run, and of the last call
+# returned None), wall seconds inside, device milliseconds of its launches of
+# kernels 1 and 2 (CUDA events around each launch, read after the route's
+# last fetch; 0.0 on the CPU), plan jobs run, and of the last call
 # the EM iterations (stage 7) and the pairs whose CIGAR overflowed kernel 2
 # and were counted on the host (stage 4); em_max_abs_diff is the largest
 # difference between the device EM's abundances and the host float64 EM's
 # (em_cross_check)
 ROUTE_STATS = {
-    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "jobs": 0, "overflow": 0},
-    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "jobs": 0, "em_iters": 0,
-               "em_max_abs_diff": 0.0},
+    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "jobs": 0,
+               "overflow": 0},
+    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "jobs": 0,
+               "em_iters": 0, "em_max_abs_diff": 0.0},
 }
 
 
@@ -205,6 +209,14 @@ def mesh_stage7_tie_break(
     t_start = time.perf_counter()
     stats = ROUTE_STATS["stage7"]
     stats["calls"] += 1
+    with kernel_events() as events:
+        out = _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters, stats)
+    stats["kernel_ms"] += events_ms(events)  # after the route's fetches: no wait
+    stats["seconds"] += time.perf_counter() - t_start
+    return out
+
+
+def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters, stats):
     band = resolve_band(band)
     if em_iters is None:
         em_iters = EM_MAX_ITERATIONS
@@ -247,7 +259,6 @@ def mesh_stage7_tie_break(
     if nm_vals is None:
         fetched = torch.stack([score, nm]).cpu().numpy()  # one fetch
         nm_vals = _nm_per_pair(len(qi), owner_j, fetched[0], fetched[1])
-    stats["seconds"] += time.perf_counter() - t_start
     return nm_vals, abund.cpu().numpy(), count
 
 
@@ -288,14 +299,22 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
     launches cut by payload bytes, with the counts accumulated there and
     fetched once.  Returns the PileupMatrix list and sets every consensus'
     hp_lengths, as the host route does."""
-    from ..pipeline.pileup import (
-        NQ, PileupMatrix, _median_from_hist, _pileup_payload, host_consensus_pileups, qlevel,
-    )
-
     t_start = time.perf_counter()
     stats = ROUTE_STATS["stage4"]
     stats["calls"] += 1
     stats["overflow"] = 0
+    with kernel_events() as events:
+        pms = _stage4_pileups(twin_reads, consensuses, args, stats)
+    stats["kernel_ms"] += events_ms(events)  # after the route's one fetch: no wait
+    stats["seconds"] += time.perf_counter() - t_start
+    return pms
+
+
+def _stage4_pileups(twin_reads, consensuses, args, stats):
+    from ..pipeline.pileup import (
+        NQ, PileupMatrix, _median_from_hist, _pileup_payload, host_consensus_pileups, qlevel,
+    )
+
     band = resolve_band(None)
     dev = resolve_device(args.device)
     use_hp = bool(args.use_hpc)
@@ -316,9 +335,7 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
         stats["fallbacks"] += 1
         log.warning("stage-4 device route: the flat planner declined %d pairs; "
                     "taking the per-job consumer on %s", len(payload), dev)
-        pms = host_consensus_pileups(twin_reads, consensuses, args)
-        stats["seconds"] += time.perf_counter() - t_start
-        return pms
+        return host_consensus_pileups(twin_reads, consensuses, args)
 
     # host-side totals, in the device buffers' layout
     counts = {k: np.zeros(v.numel(), dtype=np.int64)
@@ -391,5 +408,4 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
             cons.hp_lengths = _median_from_hist(pm.hp_hist)
         else:
             cons.hp_lengths = np.ones(len(cons.sequence), dtype=np.uint8)
-    stats["seconds"] += time.perf_counter() - t_start
     return pms

@@ -15,8 +15,10 @@ formula B is not.  `check()` reports both, as the TPU probe printed them.
 raise for CUDA tensors); `bitcast_rolls_reference` is the plain PyTorch
 version.  The probe prints one JSON line; with `--sass DIR` it also writes the
 kernels' SASS there and reports the opcode counts of this kernel's whole body
-(it has no loop): what the two formulas and the neighbour's word compile to,
-and how wide its loads and stores are.
+(its loop over four word rows is unrolled): what the two formulas compile to
+(one SHF per formula-A word, one PRMT per formula-B word, beside the PRMTs
+that zip two rows into words and back), and how wide its loads and stores
+are.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import torch
 
 from ..device import resolve_device
 from ..ops.build import build_kernels
-from .roofline import HBM_BYTES_PER_S, dump_sass, in_turns, loops_of, sass_bodies
+from .roofline import (
+    HBM_BYTES_PER_S, QUEUED_RUNS, dump_sass, in_turns, launch_ms, loops_of, sass_bodies,
+)
 
 ROWS, COLS = 64, 128
 CARD_TILES = 2048   # tiles of the timed run: 32 MB in, 96 MB out
@@ -48,7 +52,9 @@ def reset_counters() -> None:
 def bitcast_rolls(x: torch.Tensor) -> torch.Tensor:
     """x int16 (64, 128) or (tiles, 64, 128) -> int16 (192, 128) or
     (tiles, 192, 128): the three rolls above.  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the kernel or raise."""
+    PyTorch version; CUDA tensors launch the kernel or raise.  The kernel
+    reads 16-byte vectors, so a CUDA view whose storage is not 16-byte
+    aligned is refused."""
     if x.dtype != torch.int16 or x.dim() not in (2, 3) or tuple(x.shape[-2:]) != (ROWS, COLS) \
             or not x.is_contiguous():
         raise ValueError(f"x: expected a contiguous int16 tensor of shape ([tiles,] {ROWS}, "
@@ -58,6 +64,9 @@ def bitcast_rolls(x: torch.Tensor) -> torch.Tensor:
         return bitcast_rolls_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x: the kernel needs 16-byte aligned storage "
+                         f"(data_ptr() % 16 == {x.data_ptr() % 16})")
     lib = build_kernels()
     tiles = x.shape[0] if x.dim() == 3 else 1
     out = torch.empty((*x.shape[:-2], 3 * ROWS, COLS), dtype=torch.int16, device=x.device)
@@ -103,14 +112,14 @@ def inputs(tiles: int, device, values: str = "probe") -> torch.Tensor:
 
 def check(device="cuda") -> dict:
     """Kernel against plain version (max |difference|, over the probe's one
-    (64, 128) tile and three wide tiles; measure() compares the card-sized
-    run), and what the TPU probe printed: whether the word roll is the roll by 2 and whether
-    formulas A and B are the roll by 1."""
+    (64, 128) tile, five wide tiles, whose last block of two is half empty,
+    and their middle three as a view that starts a tile into the storage;
+    measure() compares the card-sized run), and what the TPU probe printed:
+    whether the word roll is the roll by 2 and whether formulas A and B are
+    the roll by 1."""
     err = 0
-    for values, tiles in (("probe", 1), ("wide", 3)):
-        x = inputs(tiles, device, values)
-        if tiles == 1:
-            x = x[0]
+    wide = inputs(5, device, "wide")
+    for x in (inputs(1, device, "probe")[0], wide, wide[1:4]):
         got = bitcast_rolls(x)
         err = max(err, int((got.long() - bitcast_rolls_reference(x).long()).abs().max()))
     parts = got.reshape(-1, 3, ROWS, COLS)  # the wide input: every row differs
@@ -124,13 +133,17 @@ def check(device="cuda") -> dict:
 
 def measure(device="cuda") -> dict:
     """Kernel, plain version in turns on one tile and on CARD_TILES tiles,
-    their outputs compared (max_abs_err); the bound is the run's bytes over
-    the card's memory rate (no single PyTorch call computes the three
-    rolls)."""
+    their outputs compared (max_abs_err): "ms" and "plain_ms" are means over
+    QUEUED_RUNS launches queued back to back, "single_ms" one launch between
+    its two events, which holds the wrapper's host time too; the bound is
+    the run's bytes over the card's memory rate (no single PyTorch call
+    computes the three rolls)."""
     res = {}
     for where, tiles in (("tile", 1), ("card", CARD_TILES)):
         x = inputs(tiles, device, "wide")
-        r = in_turns(lambda: bitcast_rolls(x), lambda: bitcast_rolls_reference(x))
+        r = in_turns(lambda: bitcast_rolls(x), lambda: bitcast_rolls_reference(x),
+                     runs=QUEUED_RUNS)
+        r["single_ms"] = launch_ms(lambda: bitcast_rolls(x))
         r["tiles"] = tiles
         r["bytes"] = tiles * ROWS * COLS * 2 * 4  # 1 tile in, 3 out, int16
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3

@@ -34,7 +34,8 @@ import torch
 from ..device import resolve_device
 from ..ops.build import build_kernels
 from .roofline import (
-    bound, dump_sass, in_turns, launch_ms, loops_of, published_dispatch_rate, sass_loops,
+    QUEUED_RUNS, bound, dump_sass, in_turns, launch_ms, loops_of, published_dispatch_rate,
+    sass_loops,
 )
 
 OPS = ("max", "lt", "eq", "select", "sra15", "bitsel", "dpx")
@@ -42,7 +43,6 @@ ROWS, COLS = 64, 128
 CARD_TILES = 2048                # tiles of the elementwise timed run
 CHAIN_ITERS = (4096, 65536)      # the difference method's two counts
 CHECK_ITERS = (0, 3)
-QUEUED_RUNS = 20                 # back-to-back launches per elementwise timing
 SEED = 13
 
 LAUNCHES = {f"probe_i16_{k}": 0 for k in OPS}

@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.build import build_kernels
-from .roofline import bound, in_turns, launch_ms, published_dispatch_rate
+from .roofline import QUEUED_RUNS, bound, in_turns, launch_ms, published_dispatch_rate
 
 MODES = ("add", "shfl", "smem")
 ROWS, COLS = 64, 128
@@ -121,10 +121,13 @@ def check(device="cuda") -> dict[str, int]:
 
 def measure(device="cuda") -> dict:
     """Per mode, N = 2,000 steps on one tile and on CARD_TILES tiles: kernel
-    and plain version in turns, their outputs compared (max_abs_err).  The
-    library call of `add` is torch.add(x, N), the whole function in one
-    call.  No single PyTorch call computes roll(x, N % 64, 0) + N, so shfl
-    and smem have none; torch.roll(x, N % 64, 0) alone, the rotation
+    and plain version in turns, their outputs compared (max_abs_err): "ms",
+    "plain_ms" and "library_ms" are means over QUEUED_RUNS launches queued
+    back to back, "single_ms" (and "single_library_ms") one launch between
+    its two events, which holds the wrapper's host time too.  The library
+    call of `add` is torch.add(x, N), the whole function in one call.  No
+    single PyTorch call computes roll(x, N % 64, 0) + N, so shfl and smem
+    have none; torch.roll(x, N % 64, 0) alone, the rotation
     without the + N, is timed beside them as `torch_roll_ms`.
     The bound counts the N adds per element at the card's dispatch rate and
     the tile's bytes once in and once out.  `us_per_step` is the kernel's
@@ -137,10 +140,13 @@ def measure(device="cuda") -> dict:
         n = x.numel()
         res[where] = {}
         for mode in MODES:
+            library = (lambda: torch.add(x, STEPS)) if mode == "add" else None
             t = in_turns(lambda: roll_steps(mode, x), lambda: roll_steps_reference(mode, x),
-                         (lambda: torch.add(x, STEPS)) if mode == "add" else None)
-            res[where][mode] = {**t, "us_per_step": t["ms"] * 1e3 / STEPS,
-                                **bound(n * STEPS, 2 * 4 * n, peak)}
+                         library, runs=QUEUED_RUNS)
+            res[where][mode] = {
+                **t, "single_ms": launch_ms(lambda: roll_steps(mode, x)),
+                "single_library_ms": launch_ms(library) if library is not None else None,
+                "us_per_step": t["ms"] * 1e3 / STEPS, **bound(n * STEPS, 2 * 4 * n, peak)}
             if mode != "add":
                 res[where][mode]["torch_roll_ms"] = launch_ms(
                     lambda: torch.roll(x, STEPS % ROWS, dims=-2))

@@ -4,8 +4,9 @@ stages 4 and 7 ("mesh", the default) and with its per-job routes ("perjob":
 run_cluster on chip_smoke.py's 5,000 reads, in turns (ORDER below) after one
 untimed run of each, all in one process.  Every run's outputs must equal
 the first host run's, byte for byte; the wall time of each run, the port's
-seconds by stage, inside its device routes and inside its per-job DP routes
-are printed as one JSON line.
+seconds by stage, inside its device routes (with the device milliseconds of
+kernels 1 and 2 in each) and inside its per-job DP routes are printed as one
+JSON line.
 
 Skips without a card.  On the card (no jax there, so without this
 directory's conftest):
@@ -53,6 +54,7 @@ def test_card_run_matches_host_run_in_turns(tmp_path):
         return {"side": side, "wall_s": time.perf_counter() - t0,
                 "dp_route_s": sum(align_batch.ROUTE_SECONDS.values()),
                 "device_route_s": {k: v["seconds"] for k, v in mesh.ROUTE_STATS.items()},
+                "device_route_kernel_ms": {k: v["kernel_ms"] for k, v in mesh.ROUTE_STATS.items()},
                 "stage_s": dict(port_asv.STAGE_SECONDS)}
 
     first = {side: run(side, tmp_path / f"{side}_warmup")["wall_s"]

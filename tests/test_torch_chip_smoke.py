@@ -56,7 +56,8 @@ def test_kernels_table_names_every_counter():
 
 
 def test_sw_bounds_from_shapes():
-    shape = {"B": 2304, "Lq": 1450, "Lt": 1450, "band": 48, "walk_steps": 2304 * 1450}
+    shape = {"B": 2304, "Lq": 1450, "Lt": 1450, "band": 48, "walk_steps": 2304 * 1450,
+             "walk_max_steps": 1460, "walk_rows": 2304 * 1450}
     b = chip_smoke.sw_bounds(shape, 10e12)
     cells = 2304 * 1450 * 48
     assert b["sw_forward_nm"]["cells"] == cells
@@ -64,6 +65,13 @@ def test_sw_bounds_from_shapes():
     assert b["sw_forward_nm"]["bound_ms"] >= nm_ops_ms
     assert b["sw_forward_payload"]["bound_ms"] >= cells / chip_smoke.HBM_BYTES_PER_S * 1e3
     assert b["sw_walk"]["bound_by"] == "bytes"
+    # kernel 2's bound counts the walked bytes; the whole rows it streams and
+    # the longest walk's chain of shared-memory loads stand beside it
+    walked = 2304 * 1450 * 5 + 2304 * (12 + 4 * chip_smoke.MAXRUN + 24)
+    assert b["sw_walk"]["bound_ms"] == walked / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert b["sw_walk"]["whole_rows_ms"] == 2304 * 1450 * 52 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert b["sw_walk"]["whole_rows_ms"] > b["sw_walk"]["bound_ms"]
+    assert b["sw_walk"]["chain_floor_ms"] == 1460 * 30 / 1.98e9 * 1e3
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

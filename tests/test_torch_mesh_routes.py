@@ -11,6 +11,7 @@ import gzip
 
 import numpy as np
 import pytest
+import torch
 
 from savont_tpu.config import ClusterArgs
 from savont_tpu.ops.encode import revcomp_bytes
@@ -173,6 +174,22 @@ def test_stage4_route_falls_to_the_per_job_consumer_and_counts_it(tmp_path, monk
     assert st["stage7"]["fallbacks"] == st["stage7"]["calls"] >= 1
     for rel in OUTPUTS:
         assert (tmp_path / "a" / rel).read_bytes() == (tmp_path / "b" / rel).read_bytes(), rel
+
+
+def test_route_kernel_ms_is_zero_on_the_cpu(tmp_path):
+    """Both device routes sum the device time of their launches of kernels 1
+    and 2 from CUDA events; on the CPU nothing is launched, no event is
+    recorded and the sum stays 0.0."""
+    with align_torch.kernel_events() as events:
+        align_torch.sw_forward(*(torch.zeros(s, dtype=torch.int32) for s in
+                                 ((1, 2), (1, 4), (1, 3), (1,))), band=4)
+    assert events == [] and align_torch.events_ms(events) == 0.0
+    port_mesh.reset_route_stats()
+    _port_run(_workload(tmp_path, n_reads=16), tmp_path / "o")
+    st = port_mesh.ROUTE_STATS
+    assert st["stage4"]["calls"] >= 1 and st["stage7"]["calls"] >= 1
+    assert st["stage4"]["kernel_ms"] == 0.0 and st["stage7"]["kernel_ms"] == 0.0
+    assert st["stage4"]["seconds"] > 0.0
 
 
 def test_route_fields_and_flags():

@@ -71,6 +71,20 @@ def test_bitcast_tiles_and_check():
                                     "formula_a_ok": True, "formula_b_ok": False}
 
 
+@pytest.mark.parametrize("tiles", [1, 3, 5])
+def test_bitcast_plain_version_is_three_row_permutations(tiles):
+    """What the three blocks are, row by row: the roll by 2, the roll by 1,
+    and formula B's out[2m] = x[2m + 1], out[2m + 1] = x[2m - 2]."""
+    x = bitcast.inputs(tiles, "cpu", "wide")
+    out = bitcast.bitcast_rolls(x).numpy().reshape(tiles, 3, R, C)
+    xr = x.numpy()
+    np.testing.assert_array_equal(out[:, 0], np.roll(xr, 2, axis=1))
+    np.testing.assert_array_equal(out[:, 1], np.roll(xr, 1, axis=1))
+    rows = np.arange(R)
+    src = np.where(rows % 2 == 0, rows + 1, (rows - 3) % R)
+    np.testing.assert_array_equal(out[:, 2], xr[:, src])
+
+
 # ── i16ops ──────────────────────────────────────────────────────────────────
 
 I16_BODIES = {
