@@ -20,7 +20,8 @@ failure; nothing catches it, so the exit code is non-zero):
                  the three roofline kernels and the eleven kernels of the
                  bitcast, i16ops and roll probes must equal their plain
                  versions (bitcast: formula A is the roll by 1, formula B is
-                 not).  Then the edge shapes: small raw inputs the planner
+                 not; roll: every mode at k = 2, 4 and 8 rows a thread).
+                 Then the edge shapes: small raw inputs the planner
                  does not produce (edge_cases: bands 1 to 256, batches of 1,
                  31 and 65 pairs, one-row queries, targets of length 0 and 1
                  and shorter than the corridor, band jumps up to and past
@@ -41,7 +42,9 @@ failure; nothing catches it, so the exit code is non-zero):
                  i16ops and roll probes, each time the mean of 20 launches
                  queued back to back with the single launch's beside it; the
                  outputs of the timed launches must equal their plain
-                 versions' too, at tolerance 0;
+                 versions' too, at tolerance 0; every roll mode and k must
+                 run one chain instruction per element a step (the SASS of
+                 its step loop) and take no less than its bound;
   5. main path - a seed-pinned 5,000-read fastq through
                  `savont_tpu_torch.cli.main(["asv", ..., "--device", "cuda"])`
                  (what `python -m savont_tpu_torch` runs) with the default
@@ -879,7 +882,7 @@ def main() -> int:
         raise AssertionError(f"probe kernels differ from their plain versions: {probe_err}")
     log(f"  probe kernels == plain (exact): {probe_err}; bitcast word roll is the roll by 2 "
         f"{bc['even_ok']}, formula A is the roll by 1 {bc['formula_a_ok']}, formula B "
-        f"{bc['formula_b_ok']}")
+        f"{bc['formula_b_ok']}; roll: every mode at k {roll.KS}, N {roll.CHECK_STEPS}, 1 and 3 tiles")
 
     phase_done("phase 3")
     # phase 4: the probes' timed runs
@@ -913,15 +916,17 @@ def main() -> int:
     i16 = i16ops.measure()
     rl = roll.measure()
     probe.update({f"probe_i16_{k}": i16[k]["card"] for k in i16ops.OPS})
-    probe.update({f"probe_roll_{k}": rl["card"][k] for k in roll.MODES})
+    # the roll modes at their best k, card-sized
+    roll_k = {m: roll.best(rl, m)[0] for m in roll.MODES}
+    probe.update({f"probe_roll_{m}": rl["card"][m][k] for m, k in roll_k.items()})
     probe_launches = {**bitcast.LAUNCHES, **i16ops.LAUNCHES, **roll.LAUNCHES}
     # the outputs of the timed launches (2,048 tiles; 66 tiles x 2,000 steps)
     # and of the one-tile ones, held to the plain version's too
     timed_err = {"probe_bitcast": max(r["max_abs_err"] for r in bitcast_m.values()),
                  **{f"probe_i16_{k}": max(i16[k][w]["max_abs_err"] for w in ("tile", "card"))
                     for k in i16ops.OPS},
-                 **{f"probe_roll_{k}": max(rl[w][k]["max_abs_err"] for w in ("tile", "card"))
-                    for k in roll.MODES}}
+                 **{f"probe_roll_{m}": max(rl[w][m][k]["max_abs_err"] for w in ("tile", "card")
+                                           for k in roll.KS) for m in roll.MODES}}
     probe_err = {k: max(v, timed_err[k]) for k, v in probe_err.items()}
     if any(probe_err.values()):
         raise AssertionError(f"probe kernels differ from their plain versions at the timed "
@@ -934,16 +939,32 @@ def main() -> int:
         log(f"  i16 {k}: chain {i16[k]['chain']['tops']:.3f} T ops/s "
             f"({i16[k]['chain']['tvalues']:.3f} T values/s); elementwise, {i16ops.CARD_TILES} tiles: "
             f"{json.dumps(i16[k]['card'])}; one tile {i16[k]['tile']['ms']:.4f} ms")
+    # every step runs its instruction per element (the compiler merged none),
+    # so no time stands under the bound
+    for m in roll.MODES:
+        for k in roll.KS:
+            loop, r = rl["step_loops"][f"{m}_k{k}"], rl["card"][m][k]
+            if loop["chain"] < roll.TRIP_STEPS * k or r["ms"] < r["bound_ms"]:
+                raise AssertionError(
+                    f"roll {m}, k={k}: {loop['chain']} chain instructions a trip of "
+                    f"{roll.TRIP_STEPS} steps of {k} elements, {r['ms']:.4f} ms queued against a "
+                    f"{r['bound_ms']:.4f} ms bound")
     for where in ("tile", "card"):
-        log(f"  roll, {roll.STEPS} steps, {where}: " + "; ".join(
-            f"{m} {rl[where][m]['us_per_step']:.4f} us/step ({rl[where][m]['ms']:.4f} ms queued, "
-            f"{rl[where][m]['single_ms']:.4f} ms single)" for m in roll.MODES)
-            + "; roll over add: " + ", ".join(
-            f"{m} {rl[where][m]['roll_cost_us']:.4f} us" for m in roll.MODES[1:])
-            + f"; torch.add, the library call of add, {rl[where]['add']['library_ms']:.4f} ms queued, "
-            f"{rl[where]['add']['single_library_ms']:.4f} ms single; "
-            f"torch.roll alone (no single call computes roll + N) "
-            f"{rl[where]['shfl']['torch_roll_ms']:.4f} ms")
+        for k in roll.KS:
+            log(f"  roll, {roll.STEPS} steps, {where}, k={k}: " + "; ".join(
+                f"{m} {r['us_per_step']:.5f} us/step ({r['ms']:.4f} ms queued, {r['single_ms']:.4f} "
+                f"ms single; floors: shuffle {r['shfl_floor_ms']:.4f}, shared memory "
+                f"{r['smem_floor_ms']:.4f}, issue {r['issue_floor_ms']:.4f} ms at "
+                f"{r['trip_instructions']} instructions a trip, {r['trip_chain']} of the chain)"
+                for m, r in ((m, rl[where][m][k]) for m in roll.MODES))
+                + "; roll over add: " + ", ".join(
+                f"{m} {rl[where][m][k]['roll_cost_us']:.5f} us" for m in roll.MODES[1:]))
+        add = rl[where]["add"][roll.KS[-1]]
+        log(f"  roll, {where}: bound {add['bound_ms']:.4f} ms ({add['bound_by']}); best k "
+            f"{roll_k}; torch.add(x, N), the closed form of add (it skips the steps), "
+            f"{add['library_ms']:.4f} ms queued, {add['single_library_ms']:.4f} ms single; "
+            f"torch.roll alone (no single call computes roll + N) {rl[where]['torch_roll_ms']:.4f} ms")
+    log(f"  roll step loops (SASS): {json.dumps(rl['step_loops'])}")
 
     phase_done("phase 4")
     # phase 5: the main path
@@ -967,6 +988,9 @@ def main() -> int:
             entry = {"launches": probe_launches[name], "max_abs_err": probe_err[name],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            if name.startswith("probe_roll_"):
+                mode = name.removeprefix("probe_roll_")
+                entry.update(k=roll_k[mode], ms_by_k={k: rl["card"][mode][k]["ms"] for k in roll.KS})
         else:
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],

@@ -70,7 +70,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, p,            # n, iters, threads, stream
     ]
     lib.probe_roll_launch.restype = i
-    lib.probe_roll_launch.argtypes = [i, p, p, i, i, p]  # mode, x, out, tiles, steps, stream
+    lib.probe_roll_launch.argtypes = [i, i, p, p, i, i, p]  # mode, k, x, out, tiles, steps, stream
 
 
 def _compile(srcs: list[Path], so: Path) -> str:

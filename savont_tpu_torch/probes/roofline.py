@@ -373,17 +373,23 @@ def sass_loops(text: str) -> dict[str, list[dict]]:
     return out
 
 
-def dump_sass(out_dir: Path) -> str:
-    """Write cuobjdump's SASS of the kernel library to out_dir, with
-    sass_loops and sass_bodies of it, and return the listing."""
+def sass_listing() -> str:
+    """cuobjdump's SASS of the kernel library, built first if need be."""
     build_kernels()
     r = subprocess.run([_cuobjdump(), "-sass", BUILD_INFO["path"]],
                        capture_output=True, text=True, timeout=300, check=True)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "kernels.sass").write_text(r.stdout)
-    (out_dir / "sass_loops.json").write_text(json.dumps(sass_loops(r.stdout), indent=1))
-    (out_dir / "sass_bodies.json").write_text(json.dumps(sass_bodies(r.stdout), indent=1))
     return r.stdout
+
+
+def dump_sass(out_dir: Path) -> str:
+    """Write cuobjdump's SASS of the kernel library to out_dir, with
+    sass_loops and sass_bodies of it, and return the listing."""
+    listing = sass_listing()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "kernels.sass").write_text(listing)
+    (out_dir / "sass_loops.json").write_text(json.dumps(sass_loops(listing), indent=1))
+    (out_dir / "sass_bodies.json").write_text(json.dumps(sass_bodies(listing), indent=1))
+    return listing
 
 
 def loops_of(counts: dict, word: str) -> dict:

@@ -241,6 +241,88 @@ def test_roll_closed_form_matches_the_loop(mode):
     assert roll.check("cpu") == {m: 0 for m in roll.MODES}
 
 
+@pytest.mark.parametrize("k", roll.KS)
+@pytest.mark.parametrize("mode", roll.MODES)
+def test_roll_steps_takes_each_k_on_cpu(mode, k):
+    """Every k takes the plain version on the CPU and launches nothing."""
+    x = roll.inputs(3, "cpu", "wide")
+    roll.reset_counters()
+    for steps in (0, 1, 65):
+        assert torch.equal(roll.roll_steps(mode, x, steps, k=k),
+                           roll.roll_steps_reference(mode, x, steps))
+    assert roll.REFERENCE_CALLS[f"probe_roll_{mode}"] == 3
+    assert not any(roll.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_roll_steps_rejects_other_k(k):
+    with pytest.raises(ValueError, match="k"):
+        roll.roll_steps("shfl", roll.inputs(1, "cpu"), 5, k=k)
+
+
+# 66 tiles x 64 x 128 elements x 2,000 steps on 132 SMs at 1.98 GHz:
+# 1,081,344,000 element-steps; one instruction per element-step at 4 warp
+# instructions per clock and SM takes 0.0323232 ms, one lane shuffle per
+# element-step at 32 lanes per clock 0.129293 ms, 8 shared-memory bytes per
+# element-step at 128 bytes per clock 0.258586 ms
+@pytest.mark.parametrize("k", roll.KS)
+@pytest.mark.parametrize("mode", roll.MODES)
+def test_roll_bound_and_floors_at_card_tiles(mode, k):
+    from savont_tpu_torch.probes.roofline import DISPATCH_LANES_PER_SM, bound
+
+    el_steps = roll.CARD_TILES * R * C * roll.STEPS
+    assert el_steps == 1_081_344_000
+    n = roll.CARD_TILES * R * C
+    b = bound(el_steps, 2 * 4 * n, 132 * DISPATCH_LANES_PER_SM * 1.98e9)
+    assert b == {"bound_ms": pytest.approx(0.0323232, rel=1e-5), "bound_by": "operations"}
+    # a trip is 8 steps of k elements: 8k chain instructions, a shuffle or
+    # a store, barrier and load per step, the loop's counter, compare, branch
+    trip = 8 * k + 8 + 3
+    f = roll.floors(mode, k, roll.CARD_TILES, roll.STEPS, 132, 1.98e9, trip)
+    assert f["shfl_floor_ms"] == (pytest.approx(0.129293 / k, rel=1e-5) if mode == "shfl" else 0.0)
+    assert f["smem_floor_ms"] == (pytest.approx(0.258586 / k, rel=1e-5) if mode == "smem" else 0.0)
+    assert f["issue_floor_ms"] == pytest.approx(0.0323232 * trip / (8 * k), rel=1e-5)
+    # the issue floor of a trip of the chain's instructions alone is the bound
+    chain = roll.floors(mode, k, roll.CARD_TILES, roll.STEPS, 132, 1.98e9, 8 * k)["issue_floor_ms"]
+    assert chain == pytest.approx(b["bound_ms"], rel=1e-12)
+
+
+ROLL_LISTING = """
+\t\tFunction : _ZN36_GLOBAL__N__probe_roll_cu_5e1c1a5f17probe_roll_kernelILi2ELi1EEEvPKiPiiiii
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+        /*0010*/                   SHFL.IDX PT, R9, R5, R2, 0x1f ;
+        /*0020*/                   VIADDMNMX R4, R4, R3, R6, !PT ;
+        /*0030*/                   IMAD R5, R9, R3, R3 ;
+        /*0040*/                   SHFL.IDX PT, R9, R4, R2, 0x1f ;
+        /*0050*/                   IMAD R5, R5, R3, R3 ;
+        /*0060*/                   VIADDMNMX R4, R9, R3, R6, !PT ;
+        /*0070*/                   VIADD R8, R8, 0xffffffff ;
+        /*0080*/                   ISETP.NE.AND P0, PT, R8, RZ, PT ;
+        /*0090*/               @P0 BRA 0x10 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0 ;
+\t\tFunction : roofline_peak
+        /*0000*/                   IADD3 R3, R3, R2, RZ ;
+        /*0010*/                   BRA 0x0 ;
+"""
+
+
+def test_roll_trip_counts_read_the_step_loop():
+    """The step loop of probe_roll_kernel<2, shfl> in a SASS listing (two
+    steps here, for brevity), its chain instructions counted (IMAD, not
+    IMAD.MOV; VIADDMNMX); the self-branch after EXIT and other kernels are
+    not read."""
+    assert roll.trip_counts(ROLL_LISTING) == {("shfl", 2): {
+        "instructions": 9, "chain": 4,
+        "opcodes": {"SHFL.IDX": 2, "VIADDMNMX": 2, "IMAD": 2, "VIADD": 1, "ISETP.NE.AND": 1,
+                    "BRA": 1}}}
+
+
+def test_roll_best_takes_the_least_queued_time():
+    res = {"card": {"shfl": {2: {"ms": 0.09}, 4: {"ms": 0.05}, 8: {"ms": 0.06}}}}
+    assert roll.best(res, "shfl") == (4, {"ms": 0.05})
+
+
 # ── the wrappers ────────────────────────────────────────────────────────────
 
 
