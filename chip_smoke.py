@@ -60,6 +60,24 @@ failure; nothing catches it, so the exit code is non-zero):
                  (kernel_ms) is printed beside the route's seconds.  Then
                  the earlier path, `--stage4-backend host --stage7-backend
                  host`, on a 1,500-read sample, held to its own digests.
+  6. classification - in phase 5's work directory, through
+                 `savont_tpu_torch.cli.main` on the card: the port's
+                 build_emu_slice of phase 5's templates (10,000 references),
+                 `classify` of the phase-5 ASVs and of 40 hard ASVs cut from
+                 the references (substitutions, foreign ends, both strands,
+                 two samples), `sintax` of the phase-5 ASVs under
+                 `--profile`, `export` of the two asv directories.  Every
+                 output must equal the sha256 digests pinned below (the JAX
+                 package's host runs in a fresh process); each route's
+                 counts, set to 0 just before it, must show kernel 1 (NM)
+                 over the candidate jobs, kernels 1 (payload) + 2 over the
+                 written hits only, kernel 3 on the sintax scores, and no
+                 plain version.  Then kernel 3 against its plain version,
+                 exact, on its edge cases (ties across rows and chunks,
+                 sentinel rows, empty rows, repeated slots, a score of 32, a
+                 row longer than its shared memory, one pair and one row)
+                 and at the cell's shapes, timed with its bound; and kernel
+                 1 (NM) timed at the classify cell's shapes.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
@@ -118,6 +136,36 @@ DIGESTS_SMALL = {
     "feature-table.tsv": "1c1b7107daedd81a76a11857b552dd88f050805814caa756762c6e5b96114499",
     "temp/read_to_asv_mappings.tsv": "6897ce9c6e927edd0e732e75e67263db6364f216e283caabb7e2e70a9c12a2e2",
 }
+# phase 6: the classification cell
+DB_REFS = 10_000        # build_emu_slice's default size
+DB_SEED = 11
+N_HARD = 40             # hard ASVs cut from DB references
+HARD_SEED = SEED + 6
+EXPORT_LABELS = ("main_path", "host_routes")  # export's sample names for the two runs
+SMS = 132               # H100 SXM
+LDS_PER_CLOCK = 32      # shared-memory loads an SM serves a clock (32 banks)
+# sha256 of the outputs of the JAX package's host runs, in a fresh process
+# (band 128), on the classification cell's inputs: its build_emu_slice of
+# phase 5's templates, classify of the phase-5 ASVs (written into their
+# directory) and of write_hard_asvs' ASVs, sintax of the phase-5 ASVs and
+# export of the phase-5 and host-routes directories (relabelled); paths relative to the
+# work directory (tests/test_torch_chip_smoke.py re-derives them)
+DIGESTS_CLASSIFICATION = {
+    "db/emu/species_taxid.fasta": "1df58e52aef73664c0cbc02741923fd7ce6dd8bc1374c22f9db7af9924084988",
+    "db/emu/taxonomy.tsv": "3cb59010f9eb05e918b8104c7db9869bdc903a645e97c22c448a5e7e17a7407b",
+    "mesh/species_abundance.tsv": "e8b2011f9e361c051e1cafdf2b82ca3441eda81c450f8448ed9f4fa81cf4d6cd",
+    "mesh/genus_abundance.tsv": "2070ca12b41e8adffdc8298e62e61ccd95b91dfa1d1d5a86a8ae2ef00f32d03e",
+    "mesh/asv_mappings.tsv": "c9fd03eed3a149f08741cf4fb9ab3303f1cc0bcc3e5a02875d46b56b86d5ada9",
+    "hard/species_abundance.tsv": "38076853719efc8603ff7511e1a1fc17eb44f3b44cd755645a03dfe230d2e052",
+    "hard/genus_abundance.tsv": "c8798393a17f36f01e27b107397057c12c4bfe819f98785944051558751eb58f",
+    "hard/asv_mappings.tsv": "f990c45676a726fe3aae7c5b5e77e9ae5a4da32f8e18be5c9edf560d233964bc",
+    "sintax/genus_abundance.tsv": "2070ca12b41e8adffdc8298e62e61ccd95b91dfa1d1d5a86a8ae2ef00f32d03e",
+    "sintax/asv_mappings.tsv": "37af17db4161d0d13ef22c4d9598b3a1c5c0f1a5a9cb5f4c5ecd7a8eeb579751",
+    "export/merged_feature_table.tsv": "e063174d4cb8da22d446f6d4de1a36a8f29b4bc48975ae873d515882663a65cd",
+    "export/merged_rep_seqs.fasta": "b8cfff01428ce90207ca5eb4afa828a4ba74f07eb2a4317f7676d904535252f5",
+    "export/merged_asv_taxonomy.tsv": "2aedcfcd0ab7b63cc4613542e3d9e83709992b3720b7160183d176792e4ffb34",
+    "export/merged_taxon_counts.tsv": "b950ef75a0eae0162dc913bcf27c21c172e10100c37dbc459c7809a480f55d6c",
+}
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_forward_nm": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
     "sw_forward_payload": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
@@ -132,6 +180,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                         ("bitsel", 49), ("dpx", 22))},
     **{f"probe_roll_{mode}": ("savont_tpu_torch/ops/csrc/probe_roll.cu", "scripts/pallas_probe_roll.py:25")
        for mode in ("add", "shfl", "smem")},
+    "sintax_scores": ("savont_tpu_torch/ops/csrc/sintax_scores.cu", "savont_tpu/parallel/mesh.py:977"),
 }
 
 
@@ -506,6 +555,59 @@ def check_edge_shapes() -> int:
     return len(cases) + len(walk_cases)
 
 
+def sintax_case(rng, name: str, P: int, R: int, L: int, chunk: int, **over) -> dict:
+    """Raw inputs of kernel 3 in the JAX step's uint32 convention: R sorted
+    rows of up to L unique k-mers (below 2^24) padded with 0xFFFFFFFF, P
+    pairs of 32 slots drawn three quarters from the rows' k-mers (so scores
+    spread) and a quarter at random, ordinals 0..R-1 launched `chunk` rows at
+    a time into one accumulator.  `over`: `tie_rows` (rows that repeat row
+    0's k-mers, so their pairs tie across rows and chunks), `sentinel_pairs`
+    (k-mer-less ASVs: every slot 0xFFFFFFFE), `empty_rows` (rows of padding
+    only), `dup_pairs` (pairs whose 32 slots hold 3 k-mers of row 1, so a
+    repeated slot counts each time and the score is 32), `full` (rows
+    filled to L, no padding)."""
+    import numpy as np
+
+    refk = np.full((R, L), 0xFFFFFFFF, dtype=np.uint32)
+    for r in range(R):
+        n = L if over.get("full") else int(rng.integers(max(1, L // 2), L + 1))
+        refk[r, :n] = np.sort(rng.choice(1 << 24, n, replace=False))
+    for r in over.get("tie_rows", ()):
+        refk[r] = refk[0]
+    for r in over.get("empty_rows", ()):
+        refk[r] = 0xFFFFFFFF
+    live = refk[refk != 0xFFFFFFFF]
+    q = rng.integers(0, 1 << 24, (P, 32)).astype(np.uint32)
+    if len(live):
+        pick = rng.random((P, 32)) < 0.75
+        q[pick] = rng.choice(live, int(pick.sum()))
+    for p in over.get("sentinel_pairs", ()):
+        q[p] = 0xFFFFFFFE
+    for p in over.get("dup_pairs", ()):
+        q[p] = rng.choice(refk[1, :3], 32)
+    return {"name": name, "queries": q, "refk": refk, "ridx": np.arange(R, dtype=np.uint32),
+            "chunk": chunk}
+
+
+def sintax_edge_cases(seed: int = EDGE_SEED + 2) -> list[dict]:
+    """The edge shapes of kernel 3: ties of equal score across rows and
+    across chunk boundaries, sentinel rows of k-mer-less ASVs, references
+    with no k-mer, repeated slots with a score of 32, a row longer than the
+    kernel's shared-memory row (searched in global memory), rows without
+    padding, and one pair against one reference."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [
+        sintax_case(rng, "ties_chunks", 300, 40, 64, 7, tie_rows=(3, 6, 7, 8, 20, 39),
+                    sentinel_pairs=(0, 17, 299), empty_rows=(5, 9, 33), dup_pairs=(1, 2, 150)),
+        sintax_case(rng, "long_row", 257, 3, 16384, 3, tie_rows=(2,), dup_pairs=(5,)),
+        sintax_case(rng, "full_rows", 33, 16, 8, 16, full=True, tie_rows=(15,)),
+        sintax_case(rng, "one_pair_one_ref", 1, 1, 8, 1),
+        sintax_case(rng, "one_pair_sentinel", 1, 2, 8, 1, sentinel_pairs=(0,)),
+    ]
+
+
 def max_jump(job) -> int:
     import numpy as np
 
@@ -815,6 +917,328 @@ def main_path(work: Path, rng) -> dict:
     return {"launches": mesh["launches"], "port_s": mesh["wall_s"], "n_asvs": n_asvs}
 
 
+def write_hard_asvs(db_fasta: Path, out_dir: Path, seed: int = HARD_SEED) -> None:
+    """N_HARD ASVs cut from seed-drawn references of the database: 0-30
+    bases cut from either end, 0-6% substitutions, 0-12 foreign bases added
+    at either end, every second one reverse-complemented; and a
+    feature-table.tsv of two samples (so that classify's pooled writers
+    run)."""
+    import numpy as np
+
+    from savont_tpu_torch.ops.encode import revcomp_bytes
+
+    refs = [line.strip().encode() for line in open(db_fasta) if not line.startswith(">")]
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "final_asvs.fasta", "w") as fa, open(out_dir / "feature-table.tsv", "w") as ft:
+        ft.write("#OTU ID\tsampleA\tsampleB\n")
+        for i, r in enumerate(rng.choice(len(refs), N_HARD, replace=False)):
+            ref = refs[int(r)]
+            b = np.frombuffer(ref[int(rng.integers(0, 31)) : len(ref) - int(rng.integers(0, 31))],
+                              dtype=np.uint8).copy()
+            nsub = int(round(rng.uniform(0, 0.06) * len(b)))
+            pos = rng.choice(len(b), nsub, replace=False)
+            b[pos] = bases[(np.searchsorted(bases, b[pos]) + rng.integers(1, 4, nsub)) % 4]
+            s = (rng.choice(bases, int(rng.integers(0, 13))).tobytes() + b.tobytes()
+                 + rng.choice(bases, int(rng.integers(0, 13))).tobytes())
+            if i % 2:
+                s = revcomp_bytes(s)
+            d = [int(x) for x in rng.integers(1, 200, 2)]
+            name = f"final_consensus_{i}_depth_{sum(d)}"
+            fa.write(f">{name}\n{s.decode()}\n")
+            ft.write(f"{name}\t{d[0]}\t{d[1]}\n")
+
+
+def classification_digests(work: Path) -> dict[str, str]:
+    return {rel: hashlib.sha256((work / rel).read_bytes()).hexdigest()
+            for rel in DIGESTS_CLASSIFICATION}
+
+
+def sintax_bound(P: int, R: int, L: int, kmers: int, distinct: int) -> dict:
+    """Least time for kernel 3's function on a chunk of R rows padded to L
+    holding `kmers` k-mers in all, against P pairs whose slots hold
+    `distinct` distinct k-mers: the larger of its bytes (rows, queries and
+    ordinals read once, the keys written once) over the memory rate, and the
+    shared-memory loads of the least-work search known, each reference k-mer
+    binary-searched among the distinct query k-mers (kmers x
+    ceil(log2 distinct), the CSR form in ROADMAP.md), over SMS x
+    LDS_PER_CLOCK loads a clock at SM_CLOCK_HZ.  `design_loads` is what the
+    kernel's own design makes, each slot searched in each padded row
+    (R x P x 32 x ceil(log2 L)); it is not part of the bound."""
+    import math
+
+    loads = kmers * math.ceil(math.log2(max(distinct, 2)))
+    t_ops = loads / (SMS * LDS_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    t_bytes = 4 * (R * L + P * 32 + R + P) / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "loads": loads, "design_loads": R * P * 32 * math.ceil(math.log2(max(L, 2)))}
+
+
+def check_sintax_edges() -> int:
+    """Kernel 3 against its plain version on the card, exact, over
+    sintax_edge_cases, each launched `chunk` rows at a time into one
+    accumulator.  Returns the case count."""
+    import torch
+
+    from savont_tpu_torch.ops.sintax_torch import (
+        keys_int64, kernel_kmers, sintax_scores, sintax_scores_reference,
+    )
+
+    cases = sintax_edge_cases()
+    for case in cases:
+        q = torch.from_numpy(kernel_kmers(case["queries"])).cuda()
+        refk = torch.from_numpy(kernel_kmers(case["refk"])).cuda()
+        ridx = torch.from_numpy(case["ridx"].astype("int32")).cuda()
+        got = torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
+        want = torch.zeros_like(got)
+        for r0 in range(0, refk.shape[0], case["chunk"]):
+            part = (refk[r0 : r0 + case["chunk"]].contiguous(), ridx[r0 : r0 + case["chunk"]].contiguous())
+            sintax_scores(q, *part, got)
+            sintax_scores_reference(q, *part, want)
+        torch.cuda.synchronize()
+        err = max_abs_diff([(keys_int64(got), keys_int64(want))])
+        if err:
+            raise AssertionError(f"sintax edge case {case['name']}: kernel 3 differs from its "
+                                 f"plain version by {err}")
+        keys = keys_int64(got)
+        log(f"  edge {case['name']}: {q.shape[0]} pairs x {refk.shape[0]} rows of {refk.shape[1]}, "
+            f"chunks of {case['chunk']}, max score {int((keys >> 26).max())}, "
+            f"{int((keys == 0).sum())} pairs at 0: kernel 3 == plain (exact)")
+    return len(cases)
+
+
+def sintax_cell(mesh_dir: Path, db_fasta: Path) -> dict:
+    """Kernel 3 at the cell's shapes: the phase-5 ASVs' query matrix (ASVs x
+    100 iterations) against the first CHUNK_ROWS references of the
+    database, one launch as the sintax route makes it; against its plain
+    version (exact), timed (queued and single) in the order plain, kernel,
+    kernel, plain.  The plain version is a composition of PyTorch calls
+    (torch.searchsorted, gather, sum, amax) that computes the same function,
+    so its time is also the row's library time."""
+    import numpy as np
+    import torch
+
+    from savont_tpu_torch.io.fastx import read_fastx
+    from savont_tpu_torch.ops.sintax_torch import (
+        QUERY_SENTINEL, ROW_PAD, keys_int64, kernel_kmers, sintax_scores, sintax_scores_launch,
+        sintax_scores_reference,
+    )
+    from savont_tpu_torch.pipeline.sintax import CHUNK_ROWS, extract_kmers, query_matrix
+    from savont_tpu_torch.probes.roofline import QUEUED_RUNS, launch_ms
+
+    asvs = [r.seq.upper() for r in read_fastx(str(mesh_dir / "final_asvs.fasta"))]
+    q = torch.from_numpy(kernel_kmers(query_matrix(asvs, 100))).cuda()
+    rows = []
+    for rec in read_fastx(str(db_fasta)):
+        rows.append(np.unique(extract_kmers(rec.seq.upper())))
+        if len(rows) == CHUNK_ROWS:
+            break
+    L = max(8, 1 << (max(len(a) for a in rows) - 1).bit_length())
+    refk_np = np.full((len(rows), L), ROW_PAD, dtype=np.int32)
+    for i, a in enumerate(rows):
+        refk_np[i, : len(a)] = a
+    refk = torch.from_numpy(refk_np).cuda()
+    ridx = torch.arange(len(rows), dtype=torch.int32, device="cuda")
+    P, R = q.shape[0], refk.shape[0]
+
+    def fresh():
+        return torch.zeros(P, dtype=torch.int32, device="cuda")
+
+    got = sintax_scores(q, refk, ridx, fresh())
+    want = sintax_scores_reference(q, refk, ridx, fresh())
+    torch.cuda.synchronize()
+    err = max_abs_diff([(keys_int64(got), keys_int64(want))])
+    if err:
+        raise AssertionError(f"kernel 3 differs from its plain version at the cell's shapes by {err}")
+    acc = fresh()
+    p1 = launch_ms(lambda: sintax_scores_reference(q, refk, ridx, acc), reps=1)
+    k1 = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc), runs=QUEUED_RUNS)
+    k2 = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc), runs=QUEUED_RUNS)
+    p2 = launch_ms(lambda: sintax_scores_reference(q, refk, ridx, acc), reps=1)
+    single = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc))
+    qk = q[q != QUERY_SENTINEL]
+    b = sintax_bound(P, R, L, sum(len(a) for a in rows), int(torch.unique(qk).numel()))
+    out = {"max_abs_err": err, "ms": min(k1, k2), "single_ms": single, "plain_ms": min(p1, p2),
+           "library_ms": min(p1, p2), "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "shape": {"P": P, "R": R, "L": L, "loads": b["loads"],
+                     "design_loads": b["design_loads"]}}
+    log(f"  sintax_scores at the cell's shapes ({P} pairs x {R} rows of {L}): kernel "
+        f"{out['ms']:.4f} ms queued ({QUEUED_RUNS} launches; {k1:.4f}, {k2:.4f}), {single:.4f} ms "
+        f"single, plain (the PyTorch composition) {out['plain_ms']:.2f} ms ({p1:.2f}, {p2:.2f}); "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; least-work search {b['loads']} "
+        f"shared-memory loads over {SMS} SMs x {LDS_PER_CLOCK} a clock at {SM_CLOCK_HZ / 1e9} "
+        f"GHz; the kernel's design makes {b['design_loads']}); exact")
+    return out
+
+
+def classify_nm_cell(work: Path, asv_dir: Path, int32_ops_per_s: float) -> dict:
+    """Kernel 1 (NM mode) at a classify cell's shapes: the ASVs of asv_dir
+    against phase 6's database, their candidate pairs planned and launched
+    by the classify route's own functions (candidate_pairs,
+    classify_nm_slabs, classify_nm_launches) at its band.  Each launch is
+    held against the plain version on the same card tensors (exact); the
+    launches are timed as the best of two 5-launch means beside the plain
+    version (plain, kernel, kernel, plain), with the bound (cells x
+    OPS_PER_CELL over the measured int32 rate, or the bytes)."""
+    import torch
+
+    from savont_tpu_torch.db.registry import load_database
+    from savont_tpu_torch.io.fastx import read_fastx
+    from savont_tpu_torch.ops.align_batch import classify_nm_launches, classify_nm_slabs
+    from savont_tpu_torch.ops.align_torch import sw_forward, sw_forward_reference
+    from savont_tpu_torch.pipeline.classify import (
+        CLASSIFY_BAND, _load_or_build_table, candidate_pairs,
+    )
+
+    db = load_database(work / "db" / "emu")
+    refs = [r.seq.upper() for r in read_fastx(str(db.fasta_path))]
+    table = _load_or_build_table(db.fasta_path, refs)
+    asvs = [r.seq.upper() for r in read_fastx(str(asv_dir / "final_asvs.fasta"))]
+    _cands, _dropped, qi, uref, ti = candidate_pairs(table, asvs)
+    slabs = list(classify_nm_slabs(asvs, [refs[c] for c in uref.tolist()], qi, ti,
+                                   CLASSIFY_BAND, torch.device("cuda")))
+    launches = [tensors for _s, plan, dp in slabs
+                for _sel, tensors in classify_nm_launches(plan, dp, CLASSIFY_BAND, "cuda")]
+    err = max_abs_diff([(sw_forward(*t, CLASSIFY_BAND), sw_forward_reference(*t, CLASSIFY_BAND))
+                        for t in launches])
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"kernel 1 (NM) differs from its plain version at the classify "
+                             f"cell of {asv_dir.name} by {err}")
+
+    def run():
+        for tensors in launches:
+            sw_forward(*tensors, CLASSIFY_BAND)
+
+    def plain():
+        for tensors in launches:
+            sw_forward_reference(*tensors, CLASSIFY_BAND)
+
+    p1 = cuda_ms(plain, 1, warm_up=False)
+    ms = min(cuda_ms(run, 5), cuda_ms(run, 5))
+    p2 = cuda_ms(plain, 1, warm_up=False)
+    jobs = sum(len(plan[0]) for _s, plan, _dp in slabs)
+    cells = sum(int(t[0].shape[0]) * int(t[0].shape[1]) * CLASSIFY_BAND for t in launches)
+    t_ops = cells * OPS_PER_CELL["sw_forward_nm"] / int32_ops_per_s * 1e3
+    in_bytes = sum(4 * (t[0].numel() + t[1].numel() + t[2].numel() + t[3].numel()) for t in launches)
+    t_bytes = (in_bytes + 16 * jobs) / HBM_BYTES_PER_S * 1e3
+    out = {"pairs": len(qi), "jobs": jobs, "launches": len(launches),
+           "Lq": max(int(t[0].shape[1]) for t in launches), "band": CLASSIFY_BAND, "cells": cells,
+           "max_abs_err": err, "ms": ms, "plain_ms": min(p1, p2), "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"kernel 1 (NM) at the classify cell of {asv_dir.name}: {out['pairs']} candidate pairs, "
+        f"{jobs} jobs in {out['launches']} launch(es), Lq {out['Lq']}, band {CLASSIFY_BAND}, "
+        f"{cells} cells: == plain (exact); {ms:.3f} ms (best of two 5-launch means), plain "
+        f"{out['plain_ms']:.1f} ms ({p1:.1f}, {p2:.1f}), bound {out['bound_ms']:.3f} ms "
+        f"({out['bound_by']}), {100 * out['bound_ms'] / ms:.1f}% of bound; {nvidia_smi_line()}")
+    return out
+
+
+def classification(work: Path, int32_ops_per_s: float) -> dict:
+    """Phase 6: classify, sintax and export through
+    savont_tpu_torch.cli.main on the card, on phase 5's work directory, held
+    to DIGESTS_CLASSIFICATION, with the launches of each route counted from
+    0 just before it; then kernel 3 on its edge cases and at the cell's
+    shapes, and kernel 1 (NM) at the classify cell's shapes."""
+    from savont_tpu_torch import cli
+    from savont_tpu_torch.db.synth import build_emu_slice
+    from savont_tpu_torch.ops import align_batch, align_torch, sintax_torch
+    from savont_tpu_torch.pipeline import sintax as sintax_mod
+    from savont_tpu_torch.pipeline.classify import CLASSIFY_SECONDS
+
+    def reset():
+        align_torch.reset_counters()
+        sintax_torch.reset_counters()
+        for d in (align_batch.CLASSIFY_STATS, sintax_mod.SCORE_STATS):
+            for k in d:
+                d[k] = type(d[k])()
+
+    def counted(tag: str, *argv: str) -> dict:
+        """One CLI run with every count set to 0 just before it; what it
+        counted, read just after, and no plain version called."""
+        reset()
+        t0 = time.perf_counter()
+        rc = cli.main(["--log-level", "warn", *argv])
+        r = {"wall_s": time.perf_counter() - t0, "launches": dict(align_torch.LAUNCHES),
+             "sintax_launches": dict(sintax_torch.LAUNCHES),
+             "classify": dict(align_batch.CLASSIFY_STATS), "sintax": dict(sintax_mod.SCORE_STATS)}
+        plain = {**align_torch.REFERENCE_CALLS, **sintax_torch.REFERENCE_CALLS}
+        if rc != 0 or any(plain.values()):
+            raise AssertionError(f"{tag}: exit {rc}, plain versions called {plain}")
+        return r
+
+    def classified(tag: str, out_dir: Path) -> dict:
+        r = counted(tag, "classify", "-i", str(out_dir), "-d", str(db_dir), "--device", "cuda")
+        c, ln = r["classify"], r["launches"]
+        rows = (out_dir / "asv_mappings.tsv").read_text().splitlines()[1:]
+        written = sum(row.split("\t")[2] != "NA" for row in rows)
+        if not (c["calls"] == 1 and c["jobs"] >= 1 and ln["sw_forward_nm"] >= 1):
+            raise AssertionError(f"{tag}: kernel 1 (NM) did not carry the candidate jobs: {r}")
+        if c["start_jobs"] != written or ln["sw_forward_payload"] != ln["sw_walk"] or (
+                written and ln["sw_walk"] < 1):
+            raise AssertionError(f"{tag}: kernels 1 (payload) + 2 ran on {c['start_jobs']} jobs, "
+                                 f"classify wrote {written} hits: {r}")
+        r["parts_s"] = dict(CLASSIFY_SECONDS)
+        log(f"classify {tag}: {c['pairs']} candidate pairs, {c['jobs']} jobs through kernel 1 "
+            f"(NM), {c['start_jobs']} written hits through kernels 1 (payload) + 2; launches "
+            f"{ln}; route {c['seconds']:.3f} s ({c['plan_s']:.3f} s of it in the flat planner) "
+            f"of {r['wall_s']:.3f} s wall, kernels 1 and 2 {c['kernel_ms']:.3f} device ms; "
+            f"seconds by part {json.dumps({k: round(v, 3) for k, v in CLASSIFY_SECONDS.items()})}; "
+            f"{nvidia_smi_line()}")
+        return r
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    build_emu_slice(work / "templates.fa", work / "db", n_refs=DB_REFS, seed=DB_SEED, device="cuda")
+    db_dir = work / "db" / "emu"
+    log(f"database: build_emu_slice, {DB_REFS} references, {time.perf_counter() - t0:.2f} s")
+    write_hard_asvs(db_dir / "species_taxid.fasta", work / "hard")
+    out["classify_mesh"] = classified("phase-5 ASVs", work / "mesh")
+    out["classify_hard"] = classified(f"{N_HARD} hard ASVs", work / "hard")
+    sintax_args = ["-i", str(work / "mesh"), "-d", str(db_dir), "--device", "cuda"]
+    r = counted("sintax", "sintax", "-o", str(work / "sintax"), *sintax_args)
+    sx = r["sintax"]
+    if r["sintax_launches"]["sintax_scores"] < 1:
+        raise AssertionError(f"sintax: kernel 3 did not carry the scores: {r}")
+    log(f"sintax: {sx['refs']} kept references, {r['sintax_launches']['sintax_scores']} launches "
+        f"of kernel 3; route "
+        f"{sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it extracting the references' k-mers "
+        f"on the host) of {r['wall_s']:.3f} s wall, kernel 3 {sx['kernel_ms']:.3f} device ms; "
+        f"{nvidia_smi_line()}")
+    out["sintax"] = r
+    # the same under --profile: the same outputs, profile.pstats and a trace
+    prof = work / "profile"
+    rp = counted("sintax --profile", "--profile", str(prof), "sintax", "-o",
+                 str(work / "sintax_profiled"), *sintax_args)
+    for name in ("genus_abundance.tsv", "asv_mappings.tsv"):
+        if (work / "sintax_profiled" / name).read_bytes() != (work / "sintax" / name).read_bytes():
+            raise AssertionError(f"sintax under --profile wrote another {name}")
+    if not ((prof / "profile.pstats").is_file() and (prof / "trace.json").is_file()):
+        raise AssertionError(f"--profile wrote no profile.pstats / trace.json in {prof}")
+    events = json.loads((prof / "trace.json").read_text()).get("traceEvents", [])
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    log(f"sintax --profile: {rp['wall_s']:.3f} s wall (route {rp['sintax']['seconds']:.3f} s); "
+        f"profile.pstats and trace.json ({len(events)} events, {len(on_card)} device kernels, "
+        f"{sum('sintax' in e.get('name', '') for e in on_card)} of them kernel 3) written")
+    out["profile_kernels"] = len(on_card)
+    counted("export", "export", "-i", str(work / "mesh"), str(work / "host"), "-o",
+            str(work / "export"), "--relabel", *EXPORT_LABELS)
+    got = classification_digests(work)
+    if got != DIGESTS_CLASSIFICATION:
+        raise AssertionError(f"classification outputs differ from the pinned digests of the "
+                             f"host runs: {got}")
+    log(f"classification outputs ({len(got)} files: DB, classify x 2, sintax, export) equal the "
+        f"host runs' pinned digests")
+    n_edge = check_sintax_edges()
+    out["sintax_kernel"] = sintax_cell(work / "mesh", db_dir / "species_taxid.fasta")
+    out["sintax_kernel"]["launches"] = r["sintax_launches"]["sintax_scores"]
+    log(f"  kernel 3: {n_edge} edge cases exact")
+    out["classify_nm"] = {d: classify_nm_cell(work, work / d, int32_ops_per_s)
+                          for d in ("mesh", "hard")}
+    return out
+
+
 def main() -> int:
     if not (ROOT / "savont_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -967,14 +1391,16 @@ def main() -> int:
     log(f"  roll step loops (SASS): {json.dumps(rl['step_loops'])}")
 
     phase_done("phase 4")
-    # phase 5: the main path
+    # phase 5: the main path; phase 6: classification, on its outputs
     work = Path(tempfile.mkdtemp(prefix="savont_chip_smoke_"))
     try:
         mp = main_path(work, rng)
+        phase_done("phase 5")
+        cls = classification(work, roof["int32_tops"] * 1e12)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    phase_done("phase 5")
+    phase_done("phase 6")
     bounds = sw_bounds(res["shape"], roof["int32_tops"] * 1e12)
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -991,6 +1417,10 @@ def main() -> int:
             if name.startswith("probe_roll_"):
                 mode = name.removeprefix("probe_roll_")
                 entry.update(k=roll_k[mode], ms_by_k={k: rl["card"][mode][k]["ms"] for k in roll.KS})
+        elif name == "sintax_scores":
+            k3 = cls["sintax_kernel"]
+            entry = {k: k3[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "single_ms")}
         else:
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
@@ -1000,6 +1430,7 @@ def main() -> int:
         # one call that computes their function where there is one
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "library_ms": None, **entry})
+    log("kernel 1 (NM) at the classify cell: " + json.dumps(cls["classify_nm"]))
     log("sw_walk: " + json.dumps({k: v for k, v in res["sw_walk"].items() if k != "max_abs_err"}))
     log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
         f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")

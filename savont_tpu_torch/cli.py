@@ -1,9 +1,11 @@
-"""Command-line interface of the port: `python -m savont_tpu_torch asv ...`.
+"""Command-line interface of the port: `python -m savont_tpu_torch
+{asv, classify, sintax, download, export}`.
 
-The `asv` flags mirror the reference CLI (cli.rs), plus `--device` and the
-route flags `--stage4-backend` / `--stage7-backend`.  Only
-`asv` is ported: `classify`, `sintax`, `download`, `export` and `--profile`
-exit 2.
+The flags mirror the JAX package's CLI (cli.rs), plus `--device` on `asv`,
+`classify` and `sintax` (the card by default; `cpu` runs the kernels' plain
+PyTorch versions) and the `asv` route flags `--stage4-backend` /
+`--stage7-backend`.  `--profile DIR` writes cProfile's profile.pstats and a
+torch.profiler trace, with CUDA activity when the run's device is the card.
 """
 from __future__ import annotations
 
@@ -14,22 +16,26 @@ import sys
 from pathlib import Path
 
 from . import __version__
-from .config import ClusterArgs
+from .config import ClassifyArgs, ClusterArgs, ExportArgs, SintaxArgs
 
 TRACE = 5  # finer than DEBUG: per-read SNPmers, pileups, pairwise dumps
 logging.addLevelName(TRACE, "TRACE")
 
-NOT_PORTED = "not yet ported to savont_tpu_torch (use python -m savont_tpu)"
+DEVICE_HELP = ("where the kernels run (default cuda; cuda fails when no card is visible, "
+               "cpu runs their plain PyTorch versions)")
 
 
-def _setup_logging(level: str, log_file: Path) -> None:
+def _setup_logging(level: str, log_file: Path | None) -> None:
     lvl = TRACE if level == "trace" else getattr(logging, level.upper(), logging.INFO)
-    log_file.parent.mkdir(parents=True, exist_ok=True)
+    handlers: list[logging.Handler] = [logging.StreamHandler(sys.stderr)]
+    if log_file is not None:
+        log_file.parent.mkdir(parents=True, exist_ok=True)
+        handlers.append(logging.FileHandler(log_file))
     logging.basicConfig(
         level=lvl,
         format="(%(asctime)s) %(levelname)s [%(name)s] %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S",
-        handlers=[logging.StreamHandler(sys.stderr), logging.FileHandler(log_file)],
+        handlers=handlers,
         force=True,
     )
     # startup banner (main.rs:444-448)
@@ -49,7 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     p.add_argument("--log-level", default="info", choices=["error", "warn", "info", "debug", "trace"])
-    p.add_argument("--profile", metavar="DIR", default=None, help=f"profiling is {NOT_PORTED}")
+    p.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="Write profiling traces to DIR: host cProfile stats (profile.pstats) and a "
+        "torch.profiler trace (trace.json, Chrome trace format), with CUDA activity "
+        "when the run's device is the card",
+    )
     sub = p.add_subparsers(dest="command", required=True)
 
     a = sub.add_parser("asv", help="Turn >~98%% accuracy long reads into ASVs")
@@ -86,11 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--resume", action="store_true", help="Reuse the stage-3 checkpoint in <output>/temp when inputs and parameters are unchanged")
     # hidden no-op, mirrored from cli.rs:176-179 (driven nowhere: main.rs:135)
     a.add_argument("--phase-heterogeneous", action="store_true", help=argparse.SUPPRESS)
-    a.add_argument(
-        "--device", choices=["cuda", "cpu"], default="cuda",
-        help="where the DP kernels run (default cuda; cuda fails when no card "
-        "is visible, cpu runs their plain PyTorch versions)",
-    )
+    a.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=DEVICE_HELP)
     for stage, what in ((4, "pileups"), (7, "tie-break and EM")):
         a.add_argument(
             f"--stage{stage}-backend", choices=["mesh", "host"], default="mesh",
@@ -98,33 +105,118 @@ def build_parser() -> argparse.ArgumentParser:
             "the device, host takes the per-job route with its host-side reduction; "
             "same outputs",
         )
-    for name in ("classify", "sintax", "download", "export"):
-        sub.add_parser(name, help=NOT_PORTED, add_help=False)
+
+    c = sub.add_parser("classify", help="Classify ASVs against a reference database")
+    c.add_argument("-i", "--input-dir", required=True)
+    c.add_argument("-o", "--output-dir", default=None)
+    c.add_argument("-d", "--db", required=True)
+    c.add_argument("-t", "--threads", type=int, default=20)
+    c.add_argument("--species-threshold", type=float, default=99.0)
+    c.add_argument("--genus-threshold", type=float, default=94.5)
+    c.add_argument("--detailed-unclassified", action="store_true")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=DEVICE_HELP)
+
+    s = sub.add_parser("sintax", help="SINTAX k-mer bootstrap classification")
+    s.add_argument("-i", "--input-dir", required=True)
+    s.add_argument("-o", "--output-dir", default=None)
+    s.add_argument("-d", "--db", required=True)
+    s.add_argument("-t", "--threads", type=int, default=20)
+    s.add_argument("--min-bootstrap", type=float, default=0.8)
+    s.add_argument("--n-iter", type=int, default=100)
+    s.add_argument("--detailed-unclassified", action="store_true")
+    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=DEVICE_HELP)
+
+    d = sub.add_parser("download", help="Download reference databases")
+    d.add_argument("--location", required=True)
+    d.add_argument("--dbs", required=True, nargs="+")
+
+    e = sub.add_parser("export", help="Export/merge results to QIIME2-compatible format")
+    e.add_argument("-i", "--input-dirs", required=True, nargs="+")
+    e.add_argument("-o", "--output-dir", required=True)
+    e.add_argument("--no-fuzzy", action="store_true")
+    e.add_argument("--relabel", nargs="+", default=None)
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    ns, extra = parser.parse_known_args(argv)
-    if ns.command != "asv":
-        print(f"ERROR [savont-tpu-torch] subcommand {ns.command!r} is {NOT_PORTED}", file=sys.stderr)
-        return 2
-    if ns.profile:
-        print(f"ERROR [savont-tpu-torch] --profile is {NOT_PORTED}", file=sys.stderr)
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    from .pipeline.asv import run_cluster
-
-    for f in ns.input_files:
-        if not Path(f).exists():
-            print(f"ERROR [savont-tpu-torch] Input file {f} does not exist.", file=sys.stderr)
-            return 1
+    ns = build_parser().parse_args(argv)
     level = {"warn": "warning"}.get(ns.log_level, ns.log_level)
-    _setup_logging(level, Path(ns.output_dir) / "savont.log")
-    fields = {k: v for k, v in vars(ns).items() if k not in ("command", "log_level", "profile")}
-    run_cluster(ClusterArgs(**fields))
+    if ns.profile:
+        return _run_profiled(ns, level)
+    return _dispatch(ns, level)
+
+
+def _run_profiled(ns, level: str) -> int:
+    """--profile DIR: cProfile's profile.pstats always, and a torch.profiler
+    trace (trace.json) with CPU activity, and CUDA activity when the run's
+    device is the card (`download` and `export` have none)."""
+    import cProfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = Path(ns.profile)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if getattr(ns, "device", "cpu") == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    pr = cProfile.Profile()
+    with profile(activities=activities) as prof:
+        pr.enable()
+        try:
+            rc = _dispatch(ns, level)
+        finally:
+            pr.disable()
+            pr.dump_stats(str(out / "profile.pstats"))
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"[savont-tpu-torch] profile written to {out}", file=sys.stderr)
+    return rc
+
+
+def _dispatch(ns, level: str) -> int:
+    if ns.command == "asv":
+        from .pipeline.asv import run_cluster
+
+        for f in ns.input_files:
+            if not Path(f).exists():
+                print(f"ERROR [savont-tpu-torch] Input file {f} does not exist.", file=sys.stderr)
+                return 1
+        _setup_logging(level, Path(ns.output_dir) / "savont.log")
+        run_cluster(ClusterArgs(**_fields(ns)))
+        return 0
+
+    if ns.command in ("classify", "sintax"):
+        from .db.registry import load_database
+
+        out = Path(ns.output_dir) if ns.output_dir else Path(ns.input_dir)
+        _setup_logging(level, out / f"savont_{ns.command}.log")
+        db = load_database(Path(ns.db))
+        if ns.command == "classify":
+            from .pipeline.classify import classify
+
+            classify(ClassifyArgs(**_fields(ns)), db)
+        else:
+            from .pipeline.sintax import sintax
+
+            sintax(SintaxArgs(**_fields(ns)), db)
+        return 0
+
+    if ns.command == "download":
+        from .db.registry import download
+
+        _setup_logging(level, None)
+        download(ns.location, ns.dbs)
+        return 0
+
+    from .pipeline.export import export
+
+    _setup_logging(level, Path(ns.output_dir) / "savont_export.log")
+    export(ExportArgs(**_fields(ns)))
     return 0
+
+
+def _fields(ns) -> dict:
+    """The subcommand's own arguments: its dataclass's fields."""
+    return {k: v for k, v in vars(ns).items() if k not in ("command", "log_level", "profile")}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Pipeline arguments of the `asv` subcommand, mirroring the reference CLI (cli.rs)."""
+"""Pipeline arguments of the subcommands, mirroring the reference CLI (cli.rs)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -66,3 +66,45 @@ class ClusterArgs:
         if self.hifi:
             self.min_cluster_size = 4
 
+
+@dataclass
+class ClassifyArgs:
+    input_dir: str = ""
+    output_dir: str | None = None
+    db: str = ""
+    threads: int = 20
+    species_threshold: float = 99.0
+    genus_threshold: float = 94.5
+    detailed_unclassified: bool = False
+    # where the alignments run: "cuda" (kernel 1, and kernels 1 + 2 for the
+    # starts of the written hits; raises when no card is visible) or "cpu"
+    # (their plain PyTorch versions)
+    device: str = "cuda"
+
+
+@dataclass
+class SintaxArgs:
+    input_dir: str = ""
+    output_dir: str | None = None
+    db: str = ""
+    threads: int = 20
+    min_bootstrap: float = 0.8
+    n_iter: int = 100
+    detailed_unclassified: bool = False
+    # where the k-mer scores run: "cuda" (kernel 3) or "cpu" (its plain
+    # PyTorch version)
+    device: str = "cuda"
+
+
+@dataclass
+class ExportArgs:
+    input_dirs: list[str] = field(default_factory=list)
+    output_dir: str = ""
+    no_fuzzy: bool = False
+    relabel: list[str] | None = None
+
+
+@dataclass
+class DownloadArgs:
+    location: str = ""
+    dbs: list[str] = field(default_factory=list)

@@ -9,6 +9,9 @@
 - The consumers: align_pairs, align_pairs_indexed, align_pairs_nm,
   align_pairs_nm_values_indexed and map_batch plan their pairs and send the
   jobs straight to the routes; every one takes the device explicitly.
+- The classify route, align_pairs_nm_indexed: the flat plan of indexed
+  pairs, kernel 1 (NM mode) over every job and kernels 1 (payload mode) + 2
+  over the winning jobs of the hits classify writes, for their starts.
 
 The host C++ DP that the routes are held against is ops/host_dp.py (the
 oracle); no consumer here takes it.
@@ -19,7 +22,9 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from .align import (
     Mapping,
     TargetIndex,
@@ -29,9 +34,17 @@ from .align import (
     evict_half,
     resolve_band,
 )
-from .align_torch import sw_forward_jobs
+from .align_torch import (
+    events_ms,
+    kernel_events,
+    length_chunks_lens,
+    plan_tensors,
+    plan_to_device,
+    sw_forward,
+    sw_forward_jobs,
+)
 from .encode import revcomp_bytes
-from .traceback_torch import sw_traceback_jobs
+from .traceback_torch import sw_traceback_jobs, walk_rle, walk_rle_launch
 
 _QCODE_CACHE: dict[tuple[bytes, int], np.ndarray] = {}
 _QCODE_CACHE_MAX = 262144
@@ -622,6 +635,170 @@ def align_pairs_nm_values_indexed(
     pairs = [(queries[a], targets[b]) for a, b in zip(qi.tolist(), ti.tolist())]
     maps = align_pairs_nm(pairs, band=band, device=device)
     return np.fromiter((m.nm if m is not None else -1 for m in maps), np.int64, len(maps))
+
+
+# the classify route's counters: calls, input pairs, plan jobs run through
+# kernel 1 (NM mode), winning jobs run again through kernel 1 (payload mode)
+# + kernel 2 for their starts, wall seconds inside and of them in the flat
+# planner, and device milliseconds of those launches (CUDA events read after
+# the route's last fetch; 0.0 on the CPU)
+CLASSIFY_STATS = {"calls": 0, "pairs": 0, "jobs": 0, "start_jobs": 0, "seconds": 0.0,
+                  "plan_s": 0.0, "kernel_ms": 0.0}
+SLAB_PAIRS = 1 << 20  # pairs planned at once: below the flat plan's 2^21-job key field
+
+
+def align_pairs_nm_indexed(
+    queries: list[bytes], targets: list[bytes],
+    qi: np.ndarray, ti: np.ndarray, band: int | None = None, *, device,
+    groups: np.ndarray | None = None,
+) -> list[Mapping | None]:
+    """The classify route: per pair k, the best alignment of
+    (queries[qi[k]], targets[ti[k]]) on `device` as a Mapping (target_id 0),
+    or None where no job aligned.
+
+    Score, NM and ends come from kernel 1 in NM mode over every job of the
+    flat plan (_plan_soa_indexed); a pair's best job is its highest score,
+    the earliest plan job on ties (align_pairs_nm's rule).  Real query and
+    target starts are computed for the hits classify writes: per group
+    (groups[k]; by default every pair is its own), the aligned pairs whose
+    NM equals that of the group's first highest-scoring pair.  Only their
+    winning jobs run again, through kernel 1 in payload mode and kernel 2;
+    every other pair is reported as run_jobs_nm reports it, its oriented
+    starts 0.  On the pairs with
+    starts this equals the JAX package's host align_pairs_nm_indexed(...,
+    coords=True) in every field classify reads, and on every pair in score,
+    NM and ends.  The pairs are independent, so one call over many groups
+    gives what one call per group gives."""
+    t_start = time.perf_counter()
+    stats = CLASSIFY_STATS
+    stats["calls"] += 1
+    stats["pairs"] += len(qi)
+    with kernel_events() as events:
+        out = _classify_route(queries, targets, qi, ti, band, device, groups, stats)
+    stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
+    stats["seconds"] += time.perf_counter() - t_start
+    return out
+
+
+def classify_nm_slabs(queries, targets, qi, ti, band: int, dev, stats=None):
+    """The classify route's plan: per slab of SLAB_PAIRS pairs, yield (the
+    slab's first pair, its flat plan, the plan's pools on `dev`) for every
+    slab with at least one job.  The planner's seconds add to
+    stats["plan_s"] where stats is given."""
+    from ..parallel.mesh import _build_target_pool
+
+    for s in range(0, len(qi), SLAB_PAIRS):
+        e = min(s + SLAB_PAIRS, len(qi))
+        uq, qi2 = np.unique(qi[s:e], return_inverse=True)
+        ut, ti2 = np.unique(ti[s:e], return_inverse=True)
+        t_sub = [targets[i] for i in ut.tolist()]
+        t_plan = time.perf_counter()
+        plan = _plan_soa_indexed([queries[i] for i in uq.tolist()], t_sub,
+                                 qi2.astype(np.int64), ti2.astype(np.int64), band)
+        if stats is not None:
+            stats["plan_s"] += time.perf_counter() - t_plan
+        if plan is None:
+            raise ValueError("classify route: the pairs lie outside the flat planner's key "
+                             "widths (a sequence of 16 kb or more), or its native library "
+                             "did not build")
+        if plan != "empty":
+            yield s, plan, plan_to_device(plan, *_build_target_pool(t_sub), dev)
+
+
+def classify_nm_launches(plan, dp: dict, band: int, dev):
+    """Kernel 1's NM-mode launches over one slab's jobs, in the route's
+    length chunks: yield per launch its job rows (on `dev`) and its inputs
+    (q, t, lo, tlens)."""
+    for sel in length_chunks_lens(plan[6], band, payload=False):
+        sel_t = torch.from_numpy(sel).to(dev)
+        yield sel_t, plan_tensors(dp, sel_t)
+
+
+def _classify_route(queries, targets, qi, ti, band, device, groups, stats):
+    band = resolve_band(band)
+    dev = resolve_device(device)
+    qi = np.asarray(qi, dtype=np.int64)
+    ti = np.asarray(ti, dtype=np.int64)
+    n = len(qi)
+    groups = np.arange(n, dtype=np.int64) if groups is None else np.asarray(groups, np.int64)
+
+    # 1. per slab of pairs: the flat plan, its pools on the device, kernel 1
+    #    (NM mode) over every job, one fetch
+    slabs = []  # (plan, device pools, first job's global index)
+    cols: dict[str, list[np.ndarray]] = {k: [] for k in ("owner", "st", "fql", "out")}
+    n_jobs = 0
+    for s, plan, dp in classify_nm_slabs(queries, targets, qi, ti, band, dev, stats):
+        owner_j, uq_j, st_j, qlens_all = plan[0], plan[1], plan[2], plan[12]
+        out = torch.empty((len(owner_j), 4), dtype=torch.int32, device=dev)
+        for sel_t, tensors in classify_nm_launches(plan, dp, band, dev):
+            out[sel_t] = sw_forward(*tensors, band)
+        slabs.append((plan, dp, n_jobs))
+        cols["owner"].append(owner_j + s)
+        cols["st"].append(st_j)
+        cols["fql"].append(qlens_all[uq_j])
+        cols["out"].append(out.cpu().numpy())  # [score, q_end, t_end, nm]
+        n_jobs += len(owner_j)
+    stats["jobs"] += n_jobs
+    best: list[Mapping | None] = [None] * n
+    if not n_jobs:
+        return best
+    owner, st, fql, out = (np.concatenate(cols[k]) for k in ("owner", "st", "fql", "out"))
+    score = out[:, 0].astype(np.int64)
+
+    # 2. per pair its winning job; per group the hits that need starts
+    win = np.full(n, -1, dtype=np.int64)
+    ok = np.flatnonzero(score > 0)
+    if len(ok) == 0:
+        return best
+    sel = ok[np.lexsort((ok, -score[ok], owner[ok]))]
+    first = sel[np.concatenate(([True], owner[sel][1:] != owner[sel][:-1]))]
+    win[owner[first]] = first
+    aligned = np.flatnonzero(win >= 0)
+    w_score, w_nm = score[win[aligned]], out[win[aligned], 3]
+    lead = np.lexsort((aligned, -w_score, groups[aligned]))
+    g_sorted = groups[aligned][lead]
+    g_first = lead[np.concatenate(([True], g_sorted[1:] != g_sorted[:-1]))]
+    lead_nm = dict(zip(groups[aligned][g_first].tolist(), w_nm[g_first].tolist()))
+    need = w_nm == np.fromiter((lead_nm[g] for g in groups[aligned].tolist()), np.int64,
+                               len(aligned))
+    start_jobs = win[aligned[need]]
+    stats["start_jobs"] += len(start_jobs)
+
+    # 3. the starts: kernel 1 (payload mode) + kernel 2 on those jobs only
+    starts = {}
+    bases = np.array([b for _, _, b in slabs] + [n_jobs])
+    slab_of = np.searchsorted(bases, start_jobs, side="right") - 1
+    for si, (plan, dp, base) in enumerate(slabs):
+        jobs = start_jobs[slab_of == si]
+        if not len(jobs):
+            continue
+        local = jobs - base
+        for part in length_chunks_lens(plan[6][local], band, payload=True):
+            sel_t = torch.from_numpy(local[part]).to(dev)
+            q, t, lo, tl = plan_tensors(dp, sel_t)
+            payload, p_score, ri, bj = sw_forward(q, t, lo, tl, band, emit_payload=True)
+            walk = walk_rle_launch if dev.type == "cuda" else walk_rle
+            _cigar, meta = walk(payload, lo, p_score, ri, bj, band, q.shape[1] + t.shape[1])
+            for j, m in zip(jobs[part].tolist(), meta.cpu().numpy().tolist()):
+                starts[j] = m  # [n_runs, q0, q1, t0, t1, nm]
+
+    for k in aligned.tolist():
+        j = int(win[k])
+        s_, q1, t1, nm = (int(v) for v in out[j])
+        q0 = t0 = 0
+        if j in starts:
+            _n, q0, wq1, t0, wt1, wnm = starts[j]
+            if (wq1, wt1, wnm) != (q1, t1, nm):
+                raise RuntimeError(f"classify route: kernel 1's payload-mode walk ends at "
+                                   f"{(wq1, wt1, wnm)}, its NM mode at {(q1, t1, nm)}")
+        strand = int(st[j])
+        if strand == 1:
+            fq0, fq1 = q0, q1
+        else:
+            fq0, fq1 = int(fql[j]) - q1, int(fql[j]) - q0
+        best[k] = Mapping(target_id=0, strand=strand, query_start=fq0, query_end=fq1,
+                          target_start=t0, target_end=t1, nm=nm, cigar=[], score=s_)
+    return best
 
 
 def _jobs_to_mappings(jobs: list[AlignJob], raw: list[tuple | None]) -> list[Mapping]:

@@ -248,3 +248,77 @@ def clear_caches() -> None:
                       pkg.ops.align_batch._QCODE_CACHE, pkg.ops.align_batch._IDCODE_CACHE,
                       pkg.ops.encode._CODES_REG):
             cache.clear()
+
+
+# ── classification inputs (classify / sintax / export) ─────────────────────
+
+
+EMU_HEADER = ("tax_id\tspecies\tgenus\tfamily\torder\tclass\tphylum\tclade\tsuperkingdom\t"
+              "subspecies\tspecies subgroup\tspecies group\n")
+
+
+def write_emu_db(db_dir, refs) -> None:
+    """An EMU-format database (species_taxid.fasta, taxonomy.tsv and the
+    .savont_db marker) from refs: (tax_id, species, genus, family, seq)."""
+    from pathlib import Path
+
+    db_dir = Path(db_dir)
+    db_dir.mkdir(parents=True, exist_ok=True)
+    with open(db_dir / "species_taxid.fasta", "w") as f:
+        for k, (tid, _sp, _g, _fam, seq) in enumerate(refs):
+            f.write(f">{tid}:emu_db:{k}\n{seq.decode()}\n")
+    with open(db_dir / "taxonomy.tsv", "w") as f:
+        f.write(EMU_HEADER)
+        for tid, sp, g, fam, _seq in refs:
+            f.write(f"{tid}\t{sp}\t{g}\t{fam}\tOrd\tCls\tPhy\tClade\tBacteria\t\t\t\n")
+    (db_dir / ".savont_db").write_text("emu-1")
+
+
+def graded_refs(seed: int, n_bases: int = 10, per_base: int = 10, length: int = 1500):
+    """n_bases random templates, each with per_base references at growing
+    substitution rates (0 to 20%): the first six of a template share its
+    genus, the rest form a second genus of its family.  Returns the refs of
+    write_emu_db."""
+    rng = np.random.default_rng(seed)
+    rates = [0.0, 0.003, 0.01, 0.02, 0.03, 0.05, 0.07, 0.10, 0.15, 0.20]
+    refs = []
+    for b in range(n_bases):
+        base = rand_seq(rng, int(rng.integers(length - 60, length + 60)))
+        for j in range(per_base):
+            seq = bytes(substitute(rng, base, rates[j % len(rates)]))
+            genus = f"Genus{b}" if j < 6 else f"Genus{b}b"
+            refs.append((str(1000 + b * per_base + j), f"Species {b}.{j}", genus, f"Fam{b // 2}", seq))
+    return refs
+
+
+def foreign_ends(rng, seq: bytes, lead: int, trail: int, rate: float, rc: bool) -> bytes:
+    """seq with `rate` substitutions between `lead` and `trail` random bases,
+    reverse-complemented when rc."""
+    s = rand_seq(rng, lead) + bytes(substitute(rng, seq, rate)) + rand_seq(rng, trail)
+    return revcomp_bytes(s) if rc else s
+
+
+def write_asv_dir(d, seqs, samples: list[str] | None = None, depths=None):
+    """An asv output directory: final_asvs.fasta with headers
+    final_consensus_<i>_depth_<total>, and a feature-table.tsv of `samples`
+    (default one, named after the directory) with depths[i] per ASV (default
+    10 * (i + 1) in the one sample)."""
+    from pathlib import Path
+
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    samples = samples or [d.name]
+    depths = depths or [[10 * (i + 1)] for i in range(len(seqs))]
+    with open(d / "final_asvs.fasta", "w") as f, open(d / "feature-table.tsv", "w") as t:
+        t.write("#OTU ID\t" + "\t".join(samples) + "\n")
+        for i, (seq, dep) in enumerate(zip(seqs, depths)):
+            name = f"final_consensus_{i}_depth_{sum(dep)}"
+            f.write(f">{name}\n{seq.decode()}\n")
+            t.write(name + "".join(f"\t{x}" for x in dep) + "\n")
+    return d
+
+
+def read_outputs(d, names) -> dict:
+    from pathlib import Path
+
+    return {n: (Path(d) / n).read_bytes() for n in names}

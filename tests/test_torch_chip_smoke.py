@@ -1,15 +1,23 @@
 """chip_smoke.py off the card: its pinned output digests are those of the
-JAX package's host run on its generated reads, its bounds follow from the
-shapes, and it refuses to run (exit code not 0, no result line) without a
-card or without the repository around it."""
+JAX package's host runs on its generated reads and classification inputs,
+its bounds follow from the shapes, and it refuses to run (exit code not 0,
+no result line) without a card or without the repository around it."""
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import chip_smoke
-from savont_tpu.config import ClusterArgs
+import savont_tpu.ops.align as jax_align
+from savont_tpu.config import ClassifyArgs, ClusterArgs, ExportArgs, SintaxArgs
+from savont_tpu.db.registry import load_database
+from savont_tpu.db.synth import build_emu_slice
 from savont_tpu.pipeline.asv import run_cluster
+from savont_tpu.pipeline.classify import classify
+from savont_tpu.pipeline.export import export
+from savont_tpu.pipeline.sintax import sintax
 from savont_tpu.validate import validate_asvs
 
 from _torch_jobs import clear_caches
@@ -17,38 +25,75 @@ from _torch_jobs import clear_caches
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def test_pinned_digests_equal_host_run(tmp_path):
+@pytest.fixture(scope="module")
+def host_runs(tmp_path_factory):
+    """savont_tpu's host run_cluster on chip_smoke's two seed-pinned samples,
+    laid out as phase 5 leaves its work directory: the main sample's
+    templates.fa, its run in mesh/, the host-routes sample's in host/."""
+    work = tmp_path_factory.mktemp("chip_smoke_work")
+    rng = chip_smoke.main_path_rng()
+    for tag, tpl, n in (("mesh", work / "templates.fa", chip_smoke.N_READS),
+                        ("host", work / "small" / "templates.fa", chip_smoke.N_READS_SMALL)):
+        tpl.parent.mkdir(exist_ok=True)
+        fq = tpl.with_name("reads.fq.gz")
+        chip_smoke.write_reads(fq, tpl, rng, n)
+        clear_caches()
+        run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(work / tag), threads=4))
+    return work
+
+
+def test_pinned_digests_equal_host_run(host_runs):
     """The digests the card run is held to are those of savont_tpu's host
     run_cluster on the same seed-pinned reads (tolerance 0: bytes)."""
-    fq, tpl = tmp_path / "reads.fq.gz", tmp_path / "templates.fa"
-    chip_smoke.write_reads(fq, tpl, chip_smoke.main_path_rng())
-    clear_caches()
-    run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(tmp_path / "host"), threads=4))
-    assert chip_smoke.output_digests(tmp_path / "host") == chip_smoke.DIGESTS
-    val = validate_asvs(str(tmp_path / "host" / "final_asvs.fasta"), str(tpl))
+    assert chip_smoke.output_digests(host_runs / "mesh") == chip_smoke.DIGESTS
+    val = validate_asvs(str(host_runs / "mesh" / "final_asvs.fasta"), str(host_runs / "templates.fa"))
     assert len(val) >= 5 and all(v.nm == 0 for v in val)
 
 
-def test_small_sample_digests_equal_host_run(tmp_path):
+def test_small_sample_digests_equal_host_run(host_runs):
     """The same for the 1,500-read sample of the host-routes run, drawn
     after the main sample."""
-    fq, tpl = tmp_path / "reads.fq.gz", tmp_path / "templates.fa"
-    chip_smoke.write_reads(fq, tpl, chip_smoke.small_sample_rng(), chip_smoke.N_READS_SMALL)
-    clear_caches()
-    run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(tmp_path / "host"), threads=4))
-    assert chip_smoke.output_digests(tmp_path / "host") == chip_smoke.DIGESTS_SMALL
-    val = validate_asvs(str(tmp_path / "host" / "final_asvs.fasta"), str(tpl))
+    assert chip_smoke.output_digests(host_runs / "host") == chip_smoke.DIGESTS_SMALL
+    val = validate_asvs(str(host_runs / "host" / "final_asvs.fasta"),
+                        str(host_runs / "small" / "templates.fa"))
     assert len(val) >= 5 and all(v.nm == 0 for v in val)
+
+
+def test_classification_digests_equal_host_runs(host_runs, monkeypatch):
+    """Phase 6's pinned digests are those of savont_tpu's host runs at the
+    band of a fresh process (128; the asv runs above left its module-wide
+    band at 48): build_emu_slice of the main sample's templates, classify of
+    its ASVs and of the hard ASVs (two samples), sintax, and export of the
+    two asv directories, relabelled."""
+    monkeypatch.setattr(jax_align, "DEFAULT_BAND", 128)
+    work = host_runs
+    build_emu_slice(work / "templates.fa", work / "db", n_refs=chip_smoke.DB_REFS,
+                    seed=chip_smoke.DB_SEED)
+    db_dir = work / "db" / "emu"
+    chip_smoke.write_hard_asvs(db_dir / "species_taxid.fasta", work / "hard")
+    db = load_database(db_dir)
+    for d in ("mesh", "hard"):
+        classify(ClassifyArgs(input_dir=str(work / d), db=str(db_dir)), db)
+    sintax(SintaxArgs(input_dir=str(work / "mesh"), output_dir=str(work / "sintax"),
+                      db=str(db_dir)), db)
+    export(ExportArgs(input_dirs=[str(work / "mesh"), str(work / "host")],
+                      output_dir=str(work / "export"), relabel=list(chip_smoke.EXPORT_LABELS)))
+    got = chip_smoke.classification_digests(work)
+    print(got)
+    assert got == chip_smoke.DIGESTS_CLASSIFICATION
+    hard = (work / "hard" / "asv_mappings.tsv").read_text().splitlines()[1:]
+    assert len({r.split("\t")[0] for r in hard}) == chip_smoke.N_HARD
+    assert "sampleB" in (work / "hard" / "species_abundance.tsv").read_text()
 
 
 def test_kernels_table_names_every_counter():
     """Every kernel the port counts launches of stands in chip_smoke's table
     with its source in the repository."""
-    from savont_tpu_torch.ops import align_torch
+    from savont_tpu_torch.ops import align_torch, sintax_torch
     from savont_tpu_torch.probes import bitcast, i16ops, roll, roofline
 
     counted = set(align_torch.LAUNCHES) - {"walk_overflow"}
-    for mod in (roofline, bitcast, i16ops, roll):
+    for mod in (roofline, bitcast, i16ops, roll, sintax_torch):
         counted |= set(mod.LAUNCHES)
     assert counted == set(chip_smoke.KERNELS)
     for src, rep in chip_smoke.KERNELS.values():
@@ -72,6 +117,22 @@ def test_sw_bounds_from_shapes():
     assert b["sw_walk"]["whole_rows_ms"] == 2304 * 1450 * 52 / chip_smoke.HBM_BYTES_PER_S * 1e3
     assert b["sw_walk"]["whole_rows_ms"] > b["sw_walk"]["bound_ms"]
     assert b["sw_walk"]["chain_floor_ms"] == 1460 * 30 / 1.98e9 * 1e3
+
+
+def test_sintax_bound_from_shapes():
+    """Kernel 3's bound is its function's, not its design's: the shared-memory
+    loads of each reference k-mer binary-searched among the distinct query
+    k-mers (kmers x ceil(log2 distinct)) over 132 SMs x 32 loads a clock, or
+    its bytes where those take longer.  The design's loads (each slot
+    searched in each padded row) stand beside it, far above."""
+    kmers = 4096 * 1450
+    b = chip_smoke.sintax_bound(1000, 4096, 2048, kmers, 20000)
+    assert b["loads"] == kmers * 15 and b["bound_by"] == "operations"
+    assert b["bound_ms"] == b["loads"] / (132 * 32 * chip_smoke.SM_CLOCK_HZ) * 1e3
+    assert b["design_loads"] == 4096 * 1000 * 32 * 11 > 10 * b["loads"]
+    few = chip_smoke.sintax_bound(1, 4096, 2048, kmers, 32)
+    assert few["bound_by"] == "bytes"
+    assert few["bound_ms"] == 4 * (4096 * 2048 + 32 + 4096 + 1) / chip_smoke.HBM_BYTES_PER_S * 1e3
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

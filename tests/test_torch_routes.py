@@ -79,19 +79,53 @@ def test_kernels_raise_without_fallback(no_card, monkeypatch, tmp_path):
 
 
 def test_cli_help_and_unported_subcommands():
+    """Every subcommand is ported: each subcommand and flag of the JAX
+    package's parser stands in the port's, with the same defaults, plus
+    --device on asv, classify and sintax; `--help` of each exits 0."""
+    import argparse
+
+    from savont_tpu.cli import build_parser as jax_parser
+    from savont_tpu_torch.cli import build_parser
+
+    def surface(p):
+        out = {"": {a.dest: a.default for a in p._actions if a.option_strings}}
+        sub = next(a for a in p._actions if isinstance(a, argparse._SubParsersAction))
+        for name, sp in sub.choices.items():
+            out[name] = {(a.dest, tuple(a.option_strings)): a.default for a in sp._actions}
+        return out
+
+    want, got = surface(jax_parser()), surface(build_parser())
+    assert set(got) == set(want)
+    for name, flags in want.items():
+        assert flags.items() <= got[name].items(), name
+    for name in ("asv", "classify", "sintax"):
+        assert got[name][("device", ("--device",))] == "cuda"
     run = [sys.executable, "-m", "savont_tpu_torch"]
-    r = subprocess.run([*run, "asv", "--help"], cwd=ROOT, capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr
-    assert "--device" in r.stdout
-    r = subprocess.run([*run, "classify", "-i", "x", "-d", "y"], cwd=ROOT, capture_output=True, text=True)
-    assert r.returncode == 2
-    assert "not yet ported" in r.stderr
+    for name in ("asv", "classify", "sintax", "download", "export"):
+        r = subprocess.run([*run, name, "--help"], cwd=ROOT, capture_output=True, text=True)
+        assert r.returncode == 0 and "not yet ported" not in r.stdout + r.stderr, r.stderr
 
 
 def test_cli_profile_not_ported(tmp_path):
+    """--profile DIR writes cProfile's profile.pstats and a torch.profiler
+    trace around a subcommand (here sintax on the CPU)."""
+    import pstats
+
     from savont_tpu_torch.cli import main
 
-    assert main(["--profile", str(tmp_path / "p"), "asv", "x.fq", "--device", "cpu"]) == 2
+    from _torch_jobs import graded_refs, write_asv_dir, write_emu_db
+
+    refs = graded_refs(seed=95, n_bases=2)
+    write_emu_db(tmp_path / "db", refs)
+    run = write_asv_dir(tmp_path / "run", [refs[0][4]])
+    prof = tmp_path / "prof"
+    assert main(["--log-level", "warn", "--profile", str(prof), "sintax", "-i", str(run),
+                 "-d", str(tmp_path / "db"), "--n-iter", "5", "--device", "cpu"]) == 0
+    stats = pstats.Stats(str(prof / "profile.pstats"))
+    assert any(fn[2] == "sintax" for fn in stats.stats)
+    trace = json.loads((prof / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert (run / "asv_mappings.tsv").read_text().count("\n") == 2
 
 
 def test_cli_cuda_without_card_raises(no_card, tmp_path):
@@ -101,3 +135,19 @@ def test_cli_cuda_without_card_raises(no_card, tmp_path):
     fq.write_text("@r\nACGT\n+\nIIII\n")
     with pytest.raises(RuntimeError, match="cuda"):
         main(["asv", str(fq), "-o", str(tmp_path / "out"), "--device", "cuda"])
+
+
+def test_classify_and_sintax_cuda_without_card_raise(no_card, tmp_path):
+    """classify and sintax run on the card by default, and without one they
+    raise: the plain versions are not taken instead."""
+    from savont_tpu_torch.cli import main
+
+    from _torch_jobs import graded_refs, write_asv_dir, write_emu_db
+
+    refs = graded_refs(seed=96, n_bases=1)
+    write_emu_db(tmp_path / "db", refs)
+    run = write_asv_dir(tmp_path / "run", [refs[0][4]])
+    for argv in (["classify", "-i", str(run), "-d", str(tmp_path / "db")],
+                 ["sintax", "-i", str(run), "-d", str(tmp_path / "db"), "--n-iter", "2"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--log-level", "error", *argv])
