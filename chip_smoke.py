@@ -72,12 +72,18 @@ failure; nothing catches it, so the exit code is non-zero):
                  counts, set to 0 just before it, must show kernel 1 (NM)
                  over the candidate jobs, kernels 1 (payload) + 2 over the
                  written hits only, kernel 3 on the sintax scores, and no
-                 plain version.  Then kernel 3 against its plain version,
-                 exact, on its edge cases (ties across rows and chunks,
-                 sentinel rows, empty rows, repeated slots, a score of 32, a
-                 row longer than its shared memory, one pair and one row)
-                 and at the cell's shapes, timed with its bound; and kernel
-                 1 (NM) timed at the classify cell's shapes.
+                 plain version.  Then kernel 3 against its plain version
+                 and the dense composition, exact, on its 11 edge cases
+                 (ties across rows and across chunks, sentinel and empty
+                 rows, repeated slots at score 32, rows of 1 to 20,000
+                 k-mers, more distinct query k-mers than a block stages in
+                 shared memory, 8,205 pairs over three pair tiles, a key
+                 held by every pair, the largest ordinal at score 32, one
+                 pair and one row); and at the cell's three shapes (the
+                 phase-5 ASVs' 1,000 pairs, the hard ASVs' 4,000 and both
+                 sets in one run, 5,000 over two pair tiles, each against
+                 the first 4,096 references), timed with its bound; and
+                 kernel 1 (NM) timed at the classify cell's shapes.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
@@ -144,6 +150,12 @@ HARD_SEED = SEED + 6
 EXPORT_LABELS = ("main_path", "host_routes")  # export's sample names for the two runs
 SMS = 132               # H100 SXM
 LDS_PER_CLOCK = 32      # shared-memory loads an SM serves a clock (32 banks)
+ORD_MASK = 0x3FFFFFF    # the largest ordinal a sintax key holds
+SINTAX_PAIR_TILE = 4096  # kernel 3's pairs a block (kPairTile, ops/csrc/sintax_scores.cu)
+SINTAX_SMEM_KEYS = 4096  # the most query keys kernel 3 stages a block (kSmemKeys, the same file)
+# kernel 3's timed query matrices: phase 5's ASVs (one pair tile), the hard
+# ASVs (one tile, D past SINTAX_SMEM_KEYS) and both in one run (two tiles)
+SINTAX_SHAPES = ("mesh", "hard", "mesh_hard")
 # sha256 of the outputs of the JAX package's host runs, in a fresh process
 # (band 128), on the classification cell's inputs: its build_emu_slice of
 # phase 5's templates, classify of the phase-5 ASVs (written into their
@@ -560,17 +572,24 @@ def sintax_case(rng, name: str, P: int, R: int, L: int, chunk: int, **over) -> d
     rows of up to L unique k-mers (below 2^24) padded with 0xFFFFFFFF, P
     pairs of 32 slots drawn three quarters from the rows' k-mers (so scores
     spread) and a quarter at random, ordinals 0..R-1 launched `chunk` rows at
-    a time into one accumulator.  `over`: `tie_rows` (rows that repeat row
-    0's k-mers, so their pairs tie across rows and chunks), `sentinel_pairs`
-    (k-mer-less ASVs: every slot 0xFFFFFFFE), `empty_rows` (rows of padding
-    only), `dup_pairs` (pairs whose 32 slots hold 3 k-mers of row 1, so a
-    repeated slot counts each time and the score is 32), `full` (rows
-    filled to L, no padding)."""
+    a time into one accumulator.  `over`: `lengths` (each row's k-mer count,
+    instead of drawn), `tie_rows` (rows that repeat row 0's k-mers, so their
+    pairs tie across rows and chunks), `empty_rows` (rows of padding only),
+    `hot` (every pair's first `hot` slots hold row 0's first k-mer: a key
+    held by every pair, repeated in each), `sentinel_pairs` (k-mer-less
+    ASVs: every slot 0xFFFFFFFE), `dup_pairs` (pairs whose 32 slots hold 3
+    k-mers of row 1, so a repeated slot counts each time and the score is
+    32), `full` (rows filled to L, no padding), `ridx` (the rows'
+    ordinals)."""
     import numpy as np
 
     refk = np.full((R, L), 0xFFFFFFFF, dtype=np.uint32)
+    lengths = over.get("lengths")
     for r in range(R):
-        n = L if over.get("full") else int(rng.integers(max(1, L // 2), L + 1))
+        if lengths is not None:
+            n = lengths[r]
+        else:
+            n = L if over.get("full") else int(rng.integers(max(1, L // 2), L + 1))
         refk[r, :n] = np.sort(rng.choice(1 << 24, n, replace=False))
     for r in over.get("tie_rows", ()):
         refk[r] = refk[0]
@@ -581,23 +600,30 @@ def sintax_case(rng, name: str, P: int, R: int, L: int, chunk: int, **over) -> d
     if len(live):
         pick = rng.random((P, 32)) < 0.75
         q[pick] = rng.choice(live, int(pick.sum()))
+    q[:, : over.get("hot", 0)] = refk[0, 0]
     for p in over.get("sentinel_pairs", ()):
         q[p] = 0xFFFFFFFE
     for p in over.get("dup_pairs", ()):
         q[p] = rng.choice(refk[1, :3], 32)
-    return {"name": name, "queries": q, "refk": refk, "ridx": np.arange(R, dtype=np.uint32),
-            "chunk": chunk}
+    ridx = np.asarray(over.get("ridx", range(R)), dtype=np.uint32)
+    return {"name": name, "queries": q, "refk": refk, "ridx": ridx, "chunk": chunk}
 
 
 def sintax_edge_cases(seed: int = EDGE_SEED + 2) -> list[dict]:
     """The edge shapes of kernel 3: ties of equal score across rows and
     across chunk boundaries, sentinel rows of k-mer-less ASVs, references
-    with no k-mer, repeated slots with a score of 32, a row longer than the
-    kernel's shared-memory row (searched in global memory), rows without
-    padding, and one pair against one reference."""
+    with no k-mer, repeated slots with a score of 32, a row of 16,384
+    k-mers, rows without padding, one pair against one reference; more
+    distinct query k-mers than a block stages in shared memory
+    (SINTAX_SMEM_KEYS, the last steps of a search in L2), more pairs than
+    one pair tile (SINTAX_PAIR_TILE, the last tile ragged), a key held by every pair four times over two tiles,
+    the largest ordinal at score 32 (key 0x80000000), rows of one k-mer
+    beside rows of 13,000 and 20,000, and chunks of 4 rows that split runs
+    of tied rows."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    top = ORD_MASK
     return [
         sintax_case(rng, "ties_chunks", 300, 40, 64, 7, tie_rows=(3, 6, 7, 8, 20, 39),
                     sentinel_pairs=(0, 17, 299), empty_rows=(5, 9, 33), dup_pairs=(1, 2, 150)),
@@ -605,6 +631,18 @@ def sintax_edge_cases(seed: int = EDGE_SEED + 2) -> list[dict]:
         sintax_case(rng, "full_rows", 33, 16, 8, 16, full=True, tie_rows=(15,)),
         sintax_case(rng, "one_pair_one_ref", 1, 1, 8, 1),
         sintax_case(rng, "one_pair_sentinel", 1, 2, 8, 1, sentinel_pairs=(0,)),
+        sintax_case(rng, "many_keys", 3000, 24, 4096, 8, tie_rows=(9,), dup_pairs=(3,)),
+        sintax_case(rng, "many_pairs", 2 * SINTAX_PAIR_TILE + 13, 12, 128, 5, tie_rows=(6,),
+                    sentinel_pairs=(0, SINTAX_PAIR_TILE, 2 * SINTAX_PAIR_TILE + 12),
+                    dup_pairs=(1, SINTAX_PAIR_TILE - 1, 2 * SINTAX_PAIR_TILE + 11)),
+        sintax_case(rng, "hot_key", SINTAX_PAIR_TILE + 904, 10, 64, 4, hot=4, tie_rows=(3, 7),
+                    sentinel_pairs=(17,), dup_pairs=(2,)),
+        sintax_case(rng, "max_ordinal", 64, 4, 32, 2, dup_pairs=(0, 1, 63),
+                    ridx=(5, top, 7, top - 1)),
+        sintax_case(rng, "short_long_rows", 300, 6, 20000, 3, lengths=(1, 13000, 1, 20000, 2, 1),
+                    dup_pairs=(7,)),
+        sintax_case(rng, "ties_split", 200, 18, 16, 4, tie_rows=(1, 3, 4, 7, 8, 11, 12, 16, 17),
+                    sentinel_pairs=(9,), dup_pairs=(5,)),
     ]
 
 
@@ -955,120 +993,160 @@ def classification_digests(work: Path) -> dict[str, str]:
             for rel in DIGESTS_CLASSIFICATION}
 
 
-def sintax_bound(P: int, R: int, L: int, kmers: int, distinct: int) -> dict:
-    """Least time for kernel 3's function on a chunk of R rows padded to L
-    holding `kmers` k-mers in all, against P pairs whose slots hold
-    `distinct` distinct k-mers: the larger of its bytes (rows, queries and
-    ordinals read once, the keys written once) over the memory rate, and the
-    shared-memory loads of the least-work search known, each reference k-mer
-    binary-searched among the distinct query k-mers (kmers x
-    ceil(log2 distinct), the CSR form in ROADMAP.md), over SMS x
-    LDS_PER_CLOCK loads a clock at SM_CLOCK_HZ.  `design_loads` is what the
-    kernel's own design makes, each slot searched in each padded row
-    (R x P x 32 x ceil(log2 L)); it is not part of the bound."""
+def sintax_bound(P: int, R: int, kmers: int, distinct: int, entries: int) -> dict:
+    """Least time for kernel 3's function on a chunk of R rows holding
+    `kmers` real k-mers in all (the padding of a layout is no part of it),
+    against P pairs whose slots hold `distinct` distinct k-mers: the larger
+    of its bytes (the k-mers, queries and ordinals read once, the keys
+    written once) over the memory rate, and its shared-memory operations,
+    one lookup per reference k-mer (an exact hash of the query k-mers
+    answers in one probe) and one count increment per hit-list entry
+    (`entries`, the sum over pairs and rows of the scores), over SMS x
+    LDS_PER_CLOCK a clock at SM_CLOCK_HZ.  `design_loads` is what the
+    kernel's own design makes, each k-mer binary-searched among the
+    distinct query k-mers (kmers x ceil(log2 distinct)) plus the
+    increments; it is not part of the bound."""
     import math
 
-    loads = kmers * math.ceil(math.log2(max(distinct, 2)))
-    t_ops = loads / (SMS * LDS_PER_CLOCK * SM_CLOCK_HZ) * 1e3
-    t_bytes = 4 * (R * L + P * 32 + R + P) / HBM_BYTES_PER_S * 1e3
+    ops = kmers + entries
+    t_ops = ops / (SMS * LDS_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    t_bytes = 4 * (kmers + P * 32 + R + P) / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "loads": loads, "design_loads": R * P * 32 * math.ceil(math.log2(max(L, 2)))}
+            "ops": ops, "design_loads": kmers * math.ceil(math.log2(max(distinct, 2))) + entries}
+
+
+def sintax_work(index, kmers) -> tuple[int, int]:
+    """The reference k-mers found among the query keys, and the hit-list
+    entries they walk (the sum of the scores over pairs and rows)."""
+    import torch
+
+    if not index.keys.numel():
+        return 0, 0
+    pos = torch.searchsorted(index.keys, kmers).clamp(max=index.keys.numel() - 1)
+    k = pos[index.keys[pos] == kmers]
+    return int(k.numel()), int((index.off[k + 1] - index.off[k]).sum())
 
 
 def check_sintax_edges() -> int:
     """Kernel 3 against its plain version on the card, exact, over
     sintax_edge_cases, each launched `chunk` rows at a time into one
-    accumulator.  Returns the case count."""
+    accumulator: the public entry (JAX layout, through the lower one) and
+    the lower entry, against the lower entry's plain version and the dense
+    composition.  Returns the case count."""
     import torch
 
     from savont_tpu_torch.ops.sintax_torch import (
-        keys_int64, kernel_kmers, sintax_scores, sintax_scores_reference,
+        QUERY_SENTINEL, index_on, keys_int64, kernel_kmers, query_index, sintax_scores,
+        sintax_scores_dense, sintax_scores_rows_launch, sintax_scores_rows_reference, unpadded_rows,
     )
 
     cases = sintax_edge_cases()
     for case in cases:
-        q = torch.from_numpy(kernel_kmers(case["queries"])).cuda()
+        q_np = kernel_kmers(case["queries"])
+        q = torch.from_numpy(q_np).cuda()
+        index = index_on(*query_index(q_np, QUERY_SENTINEL), q.shape[0], "cuda")
         refk = torch.from_numpy(kernel_kmers(case["refk"])).cuda()
         ridx = torch.from_numpy(case["ridx"].astype("int32")).cuda()
-        got = torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
-        want = torch.zeros_like(got)
+        accs = {k: torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
+                for k in ("public", "rows", "plain", "dense")}
         for r0 in range(0, refk.shape[0], case["chunk"]):
             part = (refk[r0 : r0 + case["chunk"]].contiguous(), ridx[r0 : r0 + case["chunk"]].contiguous())
-            sintax_scores(q, *part, got)
-            sintax_scores_reference(q, *part, want)
+            rows = (*unpadded_rows(part[0]), part[1])
+            sintax_scores(q, *part, accs["public"])
+            sintax_scores_rows_launch(index, *rows, accs["rows"])
+            sintax_scores_rows_reference(index, *rows, accs["plain"])
+            sintax_scores_dense(q, *part, accs["dense"])
         torch.cuda.synchronize()
-        err = max_abs_diff([(keys_int64(got), keys_int64(want))])
-        if err:
+        want = keys_int64(accs["plain"])
+        err = {k: max_abs_diff([(keys_int64(v), want)]) for k, v in accs.items()}
+        if any(err.values()):
             raise AssertionError(f"sintax edge case {case['name']}: kernel 3 differs from its "
-                                 f"plain version by {err}")
-        keys = keys_int64(got)
-        log(f"  edge {case['name']}: {q.shape[0]} pairs x {refk.shape[0]} rows of {refk.shape[1]}, "
-            f"chunks of {case['chunk']}, max score {int((keys >> 26).max())}, "
-            f"{int((keys == 0).sum())} pairs at 0: kernel 3 == plain (exact)")
+                                 f"plain version: {err}")
+        D = index.keys.numel()
+        if case["name"] == "many_keys" and D <= SINTAX_SMEM_KEYS:
+            raise AssertionError(f"many_keys: {D} keys fit kernel 3's shared memory")
+        log(f"  edge {case['name']}: {q.shape[0]} pairs ({D} distinct k-mers) x {refk.shape[0]} "
+            f"rows of {refk.shape[1]}, chunks of {case['chunk']}, max score {int((want >> 26).max())}, "
+            f"{int((want == 0).sum())} pairs at 0: kernel 3 (public, rows) == plain == dense "
+            f"(exact)")
     return len(cases)
 
 
-def sintax_cell(mesh_dir: Path, db_fasta: Path) -> dict:
-    """Kernel 3 at the cell's shapes: the phase-5 ASVs' query matrix (ASVs x
-    100 iterations) against the first CHUNK_ROWS references of the
-    database, one launch as the sintax route makes it; against its plain
-    version (exact), timed (queued and single) in the order plain, kernel,
-    kernel, plain.  The plain version is a composition of PyTorch calls
-    (torch.searchsorted, gather, sum, amax) that computes the same function,
-    so its time is also the row's library time."""
+def sintax_cell(asv_dir: Path, db_fasta: Path) -> dict:
+    """Kernel 3 at a cell's shape: the query matrix of asv_dir's ASVs (x 100
+    iterations) against the first CHUNK_ROWS references of the database, one
+    launch as the sintax route makes it (the run's query index, ragged
+    rows); against its plain version and the dense composition (exact),
+    timed (queued and single) in the order library, plain, kernel, kernel,
+    plain, library.  The library time is the dense composition's, one-shot
+    PyTorch calls (torch.searchsorted, gather, sum, amax) on the rows padded
+    to the longest."""
     import numpy as np
     import torch
 
     from savont_tpu_torch.io.fastx import read_fastx
     from savont_tpu_torch.ops.sintax_torch import (
-        QUERY_SENTINEL, ROW_PAD, keys_int64, kernel_kmers, sintax_scores, sintax_scores_launch,
-        sintax_scores_reference,
+        ROW_PAD, index_on, keys_int64, kernel_kmers, query_index, ragged_rows, sintax_scores_dense,
+        sintax_scores_rows, sintax_scores_rows_launch, sintax_scores_rows_reference,
     )
-    from savont_tpu_torch.pipeline.sintax import CHUNK_ROWS, extract_kmers, query_matrix
+    from savont_tpu_torch.pipeline import sintax as route
     from savont_tpu_torch.probes.roofline import QUEUED_RUNS, launch_ms
 
-    asvs = [r.seq.upper() for r in read_fastx(str(mesh_dir / "final_asvs.fasta"))]
-    q = torch.from_numpy(kernel_kmers(query_matrix(asvs, 100))).cuda()
+    asvs = [r.seq.upper() for r in read_fastx(str(asv_dir / "final_asvs.fasta"))]
+    subs = route.query_matrix(asvs, 100)
+    P = len(subs)
+    index = index_on(*query_index(subs, route.QUERY_SENTINEL), P, "cuda")
+    q = torch.from_numpy(kernel_kmers(subs)).cuda()
     rows = []
     for rec in read_fastx(str(db_fasta)):
-        rows.append(np.unique(extract_kmers(rec.seq.upper())))
-        if len(rows) == CHUNK_ROWS:
+        rows.append(np.unique(route.extract_kmers(rec.seq.upper())))
+        if len(rows) == route.CHUNK_ROWS:
             break
-    L = max(8, 1 << (max(len(a) for a in rows) - 1).bit_length())
-    refk_np = np.full((len(rows), L), ROW_PAD, dtype=np.int32)
+    kmers_np, row_off_np = ragged_rows(rows)
+    kmers, row_off = torch.from_numpy(kmers_np).cuda(), torch.from_numpy(row_off_np).cuda()
+    R, L = len(rows), max(len(a) for a in rows)
+    refk_np = np.full((R, L), ROW_PAD, dtype=np.int32)
     for i, a in enumerate(rows):
         refk_np[i, : len(a)] = a
     refk = torch.from_numpy(refk_np).cuda()
-    ridx = torch.arange(len(rows), dtype=torch.int32, device="cuda")
-    P, R = q.shape[0], refk.shape[0]
+    ridx = torch.arange(R, dtype=torch.int32, device="cuda")
 
     def fresh():
         return torch.zeros(P, dtype=torch.int32, device="cuda")
 
-    got = sintax_scores(q, refk, ridx, fresh())
-    want = sintax_scores_reference(q, refk, ridx, fresh())
+    got = sintax_scores_rows(index, kmers, row_off, ridx, fresh())
+    want = sintax_scores_rows_reference(index, kmers, row_off, ridx, fresh())
+    dense = sintax_scores_dense(q, refk, ridx, fresh())
     torch.cuda.synchronize()
-    err = max_abs_diff([(keys_int64(got), keys_int64(want))])
+    err = max_abs_diff([(keys_int64(got), keys_int64(want)), (keys_int64(dense), keys_int64(want))])
     if err:
-        raise AssertionError(f"kernel 3 differs from its plain version at the cell's shapes by {err}")
+        raise AssertionError(f"kernel 3 differs from its plain version at {asv_dir.name}'s shape by {err}")
     acc = fresh()
-    p1 = launch_ms(lambda: sintax_scores_reference(q, refk, ridx, acc), reps=1)
-    k1 = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc), runs=QUEUED_RUNS)
-    k2 = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc), runs=QUEUED_RUNS)
-    p2 = launch_ms(lambda: sintax_scores_reference(q, refk, ridx, acc), reps=1)
-    single = launch_ms(lambda: sintax_scores_launch(q, refk, ridx, acc))
-    qk = q[q != QUERY_SENTINEL]
-    b = sintax_bound(P, R, L, sum(len(a) for a in rows), int(torch.unique(qk).numel()))
+    l1 = launch_ms(lambda: sintax_scores_dense(q, refk, ridx, acc), reps=1)
+    p1 = launch_ms(lambda: sintax_scores_rows_reference(index, kmers, row_off, ridx, acc), reps=1)
+    k1 = launch_ms(lambda: sintax_scores_rows_launch(index, kmers, row_off, ridx, acc), runs=QUEUED_RUNS)
+    k2 = launch_ms(lambda: sintax_scores_rows_launch(index, kmers, row_off, ridx, acc), runs=QUEUED_RUNS)
+    p2 = launch_ms(lambda: sintax_scores_rows_reference(index, kmers, row_off, ridx, acc), reps=1)
+    single = launch_ms(lambda: sintax_scores_rows_launch(index, kmers, row_off, ridx, acc))
+    l2 = launch_ms(lambda: sintax_scores_dense(q, refk, ridx, acc), reps=1)
+    hits, entries = sintax_work(index, kmers)
+    D = index.keys.numel()
+    b = sintax_bound(P, R, kmers.numel(), D, entries)
     out = {"max_abs_err": err, "ms": min(k1, k2), "single_ms": single, "plain_ms": min(p1, p2),
-           "library_ms": min(p1, p2), "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-           "shape": {"P": P, "R": R, "L": L, "loads": b["loads"],
-                     "design_loads": b["design_loads"]}}
-    log(f"  sintax_scores at the cell's shapes ({P} pairs x {R} rows of {L}): kernel "
+           "library_ms": min(l1, l2), "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "shape": {"P": P, "R": R, "kmers": kmers.numel(), "L_max": L, "D": D, "hits": hits,
+                     "entries": entries, "ops": b["ops"], "design_loads": b["design_loads"],
+                     "upload_bytes": kmers_np.nbytes + row_off_np.nbytes + 4 * R}}
+    log(f"  sintax_scores at {asv_dir.name}'s shape ({P} pairs, {D} distinct query k-mers; {R} "
+        f"rows, {kmers.numel()} k-mers, {hits} found, {entries} hit-list entries walked): kernel "
         f"{out['ms']:.4f} ms queued ({QUEUED_RUNS} launches; {k1:.4f}, {k2:.4f}), {single:.4f} ms "
-        f"single, plain (the PyTorch composition) {out['plain_ms']:.2f} ms ({p1:.2f}, {p2:.2f}); "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; least-work search {b['loads']} "
-        f"shared-memory loads over {SMS} SMs x {LDS_PER_CLOCK} a clock at {SM_CLOCK_HZ / 1e9} "
-        f"GHz; the kernel's design makes {b['design_loads']}); exact")
+        f"single, {100 * b['bound_ms'] / out['ms']:.1f}% of bound; plain {out['plain_ms']:.2f} ms "
+        f"({p1:.2f}, {p2:.2f}); dense composition {out['library_ms']:.2f} ms ({l1:.2f}, {l2:.2f}); "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: the k-mers, queries and ordinals read "
+        f"and the keys written at {HBM_BYTES_PER_S / 1e12} TB/s, or {b['ops']} shared-memory "
+        f"operations, a lookup a k-mer and an increment an entry, over {SMS} SMs x "
+        f"{LDS_PER_CLOCK} a clock at {SM_CLOCK_HZ / 1e9} GHz; the design's binary searches make "
+        f"{b['design_loads']}); exact; {nvidia_smi_line()}")
     return out
 
 
@@ -1231,9 +1309,13 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     log(f"classification outputs ({len(got)} files: DB, classify x 2, sintax, export) equal the "
         f"host runs' pinned digests")
     n_edge = check_sintax_edges()
-    out["sintax_kernel"] = sintax_cell(work / "mesh", db_dir / "species_taxid.fasta")
-    out["sintax_kernel"]["launches"] = r["sintax_launches"]["sintax_scores"]
     log(f"  kernel 3: {n_edge} edge cases exact")
+    both = work / "mesh_hard"
+    both.mkdir()
+    (both / "final_asvs.fasta").write_bytes(b"".join(
+        (work / d / "final_asvs.fasta").read_bytes() for d in ("mesh", "hard")))
+    out["sintax_kernel"] = {tag: sintax_cell(work / tag, db_dir / "species_taxid.fasta")
+                            for tag in SINTAX_SHAPES}
     out["classify_nm"] = {d: classify_nm_cell(work, work / d, int32_ops_per_s)
                           for d in ("mesh", "hard")}
     return out
@@ -1418,9 +1500,12 @@ def main() -> int:
                 mode = name.removeprefix("probe_roll_")
                 entry.update(k=roll_k[mode], ms_by_k={k: rl["card"][mode][k]["ms"] for k in roll.KS})
         elif name == "sintax_scores":
+            # the route's shape (phase 5's ASVs) in the row, every shape beside it
             k3 = cls["sintax_kernel"]
-            entry = {k: k3[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "single_ms")}
+            entry = {"launches": cls["sintax"]["sintax_launches"]["sintax_scores"],
+                     **{k: k3["mesh"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "single_ms")},
+                     "shapes": k3}
         else:
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],

@@ -72,9 +72,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.probe_roll_launch.restype = i
     lib.probe_roll_launch.argtypes = [i, i, p, p, i, i, p]  # mode, k, x, out, tiles, steps, stream
     lib.sintax_scores_launch.restype = i
-    lib.sintax_scores_launch.argtypes = [p, i, p, p, i, i, p, p]  # queries, P, refk, ridx, R, L, acc, stream
-    lib.sintax_smem_kmers.restype = i
-    lib.sintax_smem_kmers.argtypes = []
+    lib.sintax_scores_launch.argtypes = [
+        p, i, p, p, i,         # keys, D, off, pairs, P
+        p, p, p, i,            # kmers, row_off, ridx, R
+        p, p,                  # acc, stream
+    ]
 
 
 def _compile(srcs: list[Path], so: Path) -> str:

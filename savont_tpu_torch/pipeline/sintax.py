@@ -19,7 +19,9 @@ from ..db import taxonomy as tax
 from ..device import resolve_device
 from ..io.fastx import read_fastx
 from ..ops.align_torch import events_ms, kernel_events
-from ..ops.sintax_torch import ROW_PAD, kernel_kmers, keys_int64, sintax_scores
+from ..ops.sintax_torch import (
+    index_on, keys_int64, query_index, ragged_rows, sintax_scores_rows,
+)
 
 log = logging.getLogger("savont")
 
@@ -93,17 +95,10 @@ def _host_scores(subs: np.ndarray, sentinel: np.uint32, db: tax.Database, n_pair
     oracle of _device_scores: stream the database once; per ref, dedup k-mers,
     bump (asv, iter) hit counts, keep the argmax ref's taxonomy per pair
     (strictly greater — ties keep the earliest ref, sintax.rs:219-273).
-    The query map is a CSR structure so per-ref scoring is pure vector ops
-    (real DBs have 10^5-10^6 references)."""
-    live = subs.reshape(-1) != sentinel
-    pair_of = np.repeat(np.arange(n_pairs, dtype=np.int64), subs.shape[1])[live]
-    flat = subs.reshape(-1)[live]
-    order = np.argsort(flat, kind="stable")
-    flat, pair_of = flat[order], pair_of[order]
-    query_keys_sorted = np.unique(flat)
-    csr_off = np.searchsorted(flat, query_keys_sorted, side="left")
-    csr_off = np.append(csr_off, len(flat)).astype(np.int64)
-    csr_pairs = pair_of
+    The query map is a CSR structure (query_index, which the device route
+    uploads too) so per-ref scoring is pure vector ops (real DBs have
+    10^5-10^6 references)."""
+    query_keys_sorted, csr_off, csr_pairs = query_index(subs, sentinel)
 
     best_scores = np.zeros(n_pairs, dtype=np.int32)
     best_ref = np.full(n_pairs, -1, dtype=np.int64)
@@ -149,11 +144,11 @@ def _host_scores(subs: np.ndarray, sentinel: np.uint32, db: tax.Database, n_pair
 
 
 def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
-    """Phase 2 on `device`: the references stream once, in chunks of
-    CHUNK_ROWS rows of their sorted unique k-mers (padded to a power of two
-    of at least 8), through kernel 3, which max's each pair's packed key
-    (score, earliest kept reference) into one accumulator on the device;
-    one fetch at the end.  Equal to the host stream (_host_scores) and to
+    """Phase 2 on `device`: the query index is built once and uploaded
+    once; the references stream once, in chunks of CHUNK_ROWS rows of their
+    sorted unique k-mers (back to back, no padding), through kernel 3, which
+    max's each pair's packed key (score, earliest kept reference) into one
+    accumulator on the device; one fetch at the end.  Equal to the host stream (_host_scores) and to
     the JAX package's mesh step, bit for bit."""
     t_start = time.perf_counter()
     stats = SCORE_STATS
@@ -166,7 +161,7 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
 
 
 def _scores_on(subs, db, n_pairs, dev, stats):
-    queries = torch.from_numpy(kernel_kmers(subs)).to(dev)
+    index = index_on(*query_index(subs, QUERY_SENTINEL), n_pairs, dev)
     acc = torch.zeros(n_pairs, dtype=torch.int32, device=dev)
     entries: list[tax.TaxonomyEntry] = []
     pend_k: list[np.ndarray] = []
@@ -175,14 +170,11 @@ def _scores_on(subs, db, n_pairs, dev, stats):
     def flush():
         if not pend_k:
             return
-        lmax = max(len(a) for a in pend_k)
-        L = max(8, 1 << (lmax - 1).bit_length())
-        refk = np.full((len(pend_k), L), ROW_PAD, dtype=np.int32)
-        for i, a in enumerate(pend_k):
-            refk[i, : len(a)] = a
+        kmers, row_off = ragged_rows(pend_k)
         base = len(entries) - len(pend_k)
         ridx = np.arange(base, len(entries), dtype=np.int32)
-        sintax_scores(queries, torch.from_numpy(refk).to(dev), torch.from_numpy(ridx).to(dev), acc)
+        sintax_scores_rows(index, torch.from_numpy(kmers).to(dev), torch.from_numpy(row_off).to(dev),
+                           torch.from_numpy(ridx).to(dev), acc)
         pend_k.clear()
 
     t_host = time.perf_counter()

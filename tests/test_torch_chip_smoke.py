@@ -119,20 +119,45 @@ def test_sw_bounds_from_shapes():
     assert b["sw_walk"]["chain_floor_ms"] == 1460 * 30 / 1.98e9 * 1e3
 
 
-def test_sintax_bound_from_shapes():
-    """Kernel 3's bound is its function's, not its design's: the shared-memory
-    loads of each reference k-mer binary-searched among the distinct query
-    k-mers (kmers x ceil(log2 distinct)) over 132 SMs x 32 loads a clock, or
-    its bytes where those take longer.  The design's loads (each slot
-    searched in each padded row) stand beside it, far above."""
-    kmers = 4096 * 1450
-    b = chip_smoke.sintax_bound(1000, 4096, 2048, kmers, 20000)
-    assert b["loads"] == kmers * 15 and b["bound_by"] == "operations"
-    assert b["bound_ms"] == b["loads"] / (132 * 32 * chip_smoke.SM_CLOCK_HZ) * 1e3
-    assert b["design_loads"] == 4096 * 1000 * 32 * 11 > 10 * b["loads"]
-    few = chip_smoke.sintax_bound(1, 4096, 2048, kmers, 32)
-    assert few["bound_by"] == "bytes"
-    assert few["bound_ms"] == 4 * (4096 * 2048 + 32 + 4096 + 1) / chip_smoke.HBM_BYTES_PER_S * 1e3
+# (pairs, rows, real k-mers, distinct query k-mers, hit-list entries): the
+# first chunk of the classification cell at its timed shapes (the phase-5
+# ASVs, the 40 hard ASVs), one pair of one k-mer, and 4,000 pairs that all
+# hold every k-mer of every row (entries past the bytes)
+BOUND_SHAPES = {
+    "mesh": (1000, 4096, 5_894_144, 7340, 17_903_616),
+    "hard": (4000, 4096, 5_894_144, 41_613, 21_860_352),
+    "one_pair": (1, 4096, 5_894_144, 1, 40),
+    "every_hit": (4000, 4096, 5_894_144, 41_613, 4000 * 5_894_144),
+}
+
+
+@pytest.mark.parametrize("shape", BOUND_SHAPES)
+def test_sintax_bound_from_shapes(shape):
+    """Kernel 3's bound is its function's, not its design's: its bytes (the
+    real k-mers, no padding, the queries and ordinals read, the keys
+    written) or, where they take longer, its shared-memory operations, one
+    lookup a reference k-mer and one increment a hit-list entry, over 132
+    SMs x 32 a clock.  The design's loads (a binary search of ceil(log2
+    distinct) steps a k-mer, plus the increments) stand beside it."""
+    P, R, kmers, distinct, entries = BOUND_SHAPES[shape]
+    b = chip_smoke.sintax_bound(P, R, kmers, distinct, entries)
+    steps = max(1, (max(distinct, 2) - 1).bit_length())
+    assert b["ops"] == kmers + entries
+    assert b["design_loads"] == kmers * steps + entries
+    t_ops = b["ops"] / (132 * 32 * chip_smoke.SM_CLOCK_HZ) * 1e3
+    t_bytes = 4 * (kmers + P * 32 + R + P) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert b["bound_ms"] == max(t_ops, t_bytes)
+    assert b["bound_by"] == ("operations" if t_ops >= t_bytes else "bytes")
+    if shape in ("mesh", "hard"):
+        # the rows' 23.6 MB set it, about 0.0071 ms; the design's 13 / 16
+        # search steps a k-mer (76.6 M / 94.3 M loads) do not
+        assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 0.0071) < 0.0002
+        assert steps == {"mesh": 13, "hard": 16}[shape]
+        assert b["design_loads"] / (132 * 32 * chip_smoke.SM_CLOCK_HZ) * 1e3 > b["bound_ms"]
+    if shape == "one_pair":
+        assert b["bound_by"] == "bytes"
+    if shape == "every_hit":
+        assert b["bound_by"] == "operations"
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

@@ -1,12 +1,15 @@
 """The port's sintax against the JAX package, on the CPU.
 
-Kernel 3's plain version (ops/sintax_torch.py) is held to the JAX
-package's mesh step sharded_sintax_scores on a one-device CPU mesh, over
-chip_smoke's edge cases (the inputs the card run holds the kernel to), and
-the port's device scores to the host stream _host_scores; the port's
+Kernel 3's plain version (ops/sintax_torch.py), through its public entry
+and through the route's lower entry (the query index, ragged rows), is
+held to the JAX package's mesh step sharded_sintax_scores on a one-device
+CPU mesh, over chip_smoke's edge cases (the inputs the card run holds the
+kernel to), and the port's device scores to the host stream _host_scores; the port's
 `sintax --device cpu` to the JAX package's host sintax, byte for byte.
 Tolerance 0: the keys are integers and the outputs bytes."""
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +32,17 @@ OUTPUTS = ("genus_abundance.tsv", "asv_mappings.tsv")
 N_EDGE = len(chip_smoke.sintax_edge_cases())
 
 
+def _jax_keys(case) -> np.ndarray:
+    """Per chunk the JAX step on one CPU device, max'ed across chunks as its
+    route does."""
+    step = sharded_sintax_scores(make_mesh(1), case["queries"])
+    want = np.zeros(len(case["queries"]), dtype=np.uint32)
+    for r0 in range(0, len(case["refk"]), case["chunk"]):
+        want = np.maximum(want, np.asarray(step(case["refk"][r0 : r0 + case["chunk"]],
+                                                case["ridx"][r0 : r0 + case["chunk"]])))
+    return want.astype(np.int64)
+
+
 def _plain_keys(case) -> np.ndarray:
     q = torch.from_numpy(sintax_torch.kernel_kmers(case["queries"]))
     acc = torch.zeros(q.shape[0], dtype=torch.int32)
@@ -44,21 +58,133 @@ def _plain_keys(case) -> np.ndarray:
 
 @pytest.mark.parametrize("k", range(N_EDGE))
 def test_kernel3_plain_equals_jax_mesh_step(k):
-    """Per chunk the JAX step on one CPU device, max'ed across chunks as its
-    route does; the plain version accumulating the same chunks."""
+    """The public entry (JAX layout) accumulating the same chunks as the JAX
+    step."""
     case = chip_smoke.sintax_edge_cases()[k]
-    step = sharded_sintax_scores(make_mesh(1), case["queries"])
-    want = np.zeros(len(case["queries"]), dtype=np.uint32)
-    for r0 in range(0, len(case["refk"]), case["chunk"]):
-        want = np.maximum(want, np.asarray(step(case["refk"][r0 : r0 + case["chunk"]],
-                                                case["ridx"][r0 : r0 + case["chunk"]])))
     got = _plain_keys(case)
-    assert np.array_equal(got, want.astype(np.int64)), case["name"]
+    assert np.array_equal(got, _jax_keys(case)), case["name"]
     if case["name"] == "ties_chunks":
         scores = got >> 26
         assert scores.max() == 32 and (got[[0, 17, 299]] == 0).all()
         # pair 1's 32 repeated slots lie in row 1 only: score 32, ordinal 1
         assert got[1] == (32 << 26) | (0x3FFFFFF - 1)
+    if case["name"] == "max_ordinal":
+        # score 32 at ordinal 2^26 - 1: bit 31 and no ordinal bit
+        assert got[0] == 1 << 31
+    if case["name"] == "hot_key":
+        assert (got >> 26).min() == 0 and ((got >> 26) >= 4).sum() == len(got) - 1
+
+
+@pytest.mark.parametrize("k", range(N_EDGE))
+def test_kernel3_rows_plain_equals_jax_mesh_step(k):
+    """The lower entry's plain version on what the route gives it: the host
+    stream's CSR (query_index on the uint32 query matrix, as _host_scores
+    builds it) and each chunk's rows with the padding stripped."""
+    case = chip_smoke.sintax_edge_cases()[k]
+    index = sintax_torch.index_on(*sintax_torch.query_index(case["queries"], np.uint32(0xFFFFFFFE)),
+                                  len(case["queries"]), "cpu")
+    acc = torch.zeros(len(case["queries"]), dtype=torch.int32)
+    for r0 in range(0, len(case["refk"]), case["chunk"]):
+        rows = [r[r != 0xFFFFFFFF] for r in case["refk"][r0 : r0 + case["chunk"]]]
+        kmers, row_off = sintax_torch.ragged_rows(rows)
+        sintax_torch.sintax_scores_rows(index, torch.from_numpy(kmers), torch.from_numpy(row_off),
+                                        torch.from_numpy(case["ridx"][r0 : r0 + case["chunk"]]
+                                                         .astype(np.int32)), acc)
+    assert np.array_equal(sintax_torch.keys_int64(acc).numpy(), _jax_keys(case)), case["name"]
+
+
+def test_edge_cases_reach_the_kernels_limits():
+    """The cases that stand for kernel 3's limits reach them: more distinct
+    query k-mers than a block holds in shared memory, more pairs than a
+    tile, a key held by every pair, a row longer than 12,288 beside rows of
+    one k-mer."""
+    cases = {c["name"]: c for c in chip_smoke.sintax_edge_cases()}
+    keys, off, _ = sintax_torch.query_index(cases["many_keys"]["queries"], np.uint32(0xFFFFFFFE))
+    assert len(keys) > chip_smoke.SINTAX_SMEM_KEYS
+    assert len(cases["many_pairs"]["queries"]) > 2 * chip_smoke.SINTAX_PAIR_TILE
+    hot = cases["hot_key"]
+    keys, off, pairs = sintax_torch.query_index(hot["queries"], np.uint32(0xFFFFFFFE))
+    i = np.searchsorted(keys, hot["refk"][0, 0])
+    assert off[i + 1] - off[i] >= 4 * (len(hot["queries"]) - 2) > chip_smoke.SINTAX_PAIR_TILE
+    lens = (cases["short_long_rows"]["refk"] != 0xFFFFFFFF).sum(axis=1)
+    assert lens.min() == 1 and lens.max() > 12288
+    assert cases["max_ordinal"]["ridx"].max() == chip_smoke.ORD_MASK
+
+
+def test_kernel3_pair_tile_matches_source():
+    """chip_smoke's SINTAX_PAIR_TILE is the kernel's kPairTile (4 pairs a
+    word, kWordsPerThread words a thread, kThreads threads), and its
+    SINTAX_SMEM_KEYS the kernel's kSmemKeys."""
+    src = (Path(chip_smoke.__file__).parent / "savont_tpu_torch/ops/csrc/sintax_scores.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert 4 * const["kWordsPerThread"] * const["kThreads"] == chip_smoke.SINTAX_PAIR_TILE
+    assert const["kSmemKeys"] == chip_smoke.SINTAX_SMEM_KEYS
+
+
+@pytest.mark.parametrize("k", range(N_EDGE))
+def test_kernel3_dense_equals_jax_mesh_step(k):
+    """The dense composition, the yardstick timed beside the kernel, is the
+    same function: equal to the JAX step on every edge case."""
+    case = chip_smoke.sintax_edge_cases()[k]
+    q = torch.from_numpy(sintax_torch.kernel_kmers(case["queries"]))
+    refk = torch.from_numpy(sintax_torch.kernel_kmers(case["refk"]))
+    ridx = torch.from_numpy(case["ridx"].astype(np.int32))
+    acc = torch.zeros(q.shape[0], dtype=torch.int32)
+    for r0 in range(0, refk.shape[0], case["chunk"]):
+        sintax_torch.sintax_scores_dense(q, refk[r0 : r0 + case["chunk"]], ridx[r0 : r0 + case["chunk"]], acc)
+    assert np.array_equal(sintax_torch.keys_int64(acc).numpy(), _jax_keys(case)), case["name"]
+
+
+def _host_csr_before(subs, sentinel, n_pairs):
+    """The CSR construction _host_scores held inline before query_index."""
+    live = subs.reshape(-1) != sentinel
+    pair_of = np.repeat(np.arange(n_pairs, dtype=np.int64), subs.shape[1])[live]
+    flat = subs.reshape(-1)[live]
+    order = np.argsort(flat, kind="stable")
+    flat, pair_of = flat[order], pair_of[order]
+    keys = np.unique(flat)
+    off = np.append(np.searchsorted(flat, keys, side="left"), len(flat)).astype(np.int64)
+    return keys, off, pair_of
+
+
+def test_query_index_equals_host_stream_csr():
+    """query_index is the CSR _host_scores built: duplicate slots kept,
+    sentinel slots dropped, each key's entries between its offsets,
+    ascending by pair."""
+    rng = np.random.default_rng(84)
+    subs = rng.integers(0, 50, (40, 32)).astype(np.uint32)
+    subs[3] = 0xFFFFFFFE
+    subs[7, :] = 9
+    subs[11, 5:] = 0xFFFFFFFE
+    keys, off, pairs = sintax_torch.query_index(subs, np.uint32(0xFFFFFFFE))
+    for got, want in zip((keys, off, pairs), _host_csr_before(subs, np.uint32(0xFFFFFFFE), 40)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert len(pairs) == 39 * 32 - 27 and 0xFFFFFFFE not in keys and 3 not in pairs
+    assert off[0] == 0 and off[-1] == len(pairs) and len(off) == len(keys) + 1
+    for i, key in enumerate(keys):
+        seg = pairs[off[i] : off[i + 1]]
+        assert np.array_equal(seg, np.sort(seg))
+        assert np.array_equal(np.bincount(seg, minlength=40), (subs == key).sum(axis=1))
+    assert (pairs[off[np.searchsorted(keys, 9)] : off[np.searchsorted(keys, 9) + 1]] == 7).sum() >= 32
+
+
+def test_ragged_rows_equal_padded_rows():
+    """The route's ragged chunk is the padded chunk the route built before,
+    the padding stripped."""
+    rng = np.random.default_rng(85)
+    pend = [np.unique(rng.integers(0, 1 << 24, n)).astype(np.uint32) for n in (1, 300, 17, 1500, 2)]
+    L = max(8, 1 << (max(len(a) for a in pend) - 1).bit_length())
+    refk = np.full((len(pend), L), sintax_torch.ROW_PAD, dtype=np.int32)
+    for i, a in enumerate(pend):
+        refk[i, : len(a)] = a
+    kmers, row_off = sintax_torch.ragged_rows(pend)
+    assert kmers.dtype == np.int32 and row_off.dtype == np.int64 and row_off[0] == 0
+    for r in range(len(pend)):
+        assert np.array_equal(kmers[row_off[r] : row_off[r + 1]], refk[r][refk[r] != sintax_torch.ROW_PAD])
+    assert row_off[-1] == len(kmers) == sum(map(len, pend))
+    # the public entry's unpadding of the same rows gives the same layout
+    got = sintax_torch.unpadded_rows(torch.from_numpy(refk))
+    assert np.array_equal(got[0].numpy(), kmers) and np.array_equal(got[1].numpy(), row_off)
 
 
 def test_kernel3_wrapper_checks():
@@ -69,8 +195,15 @@ def test_kernel3_wrapper_checks():
         sintax_torch.sintax_scores(q[:, :31].contiguous(), refk, ridx, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="int32"):
         sintax_torch.sintax_scores(q, refk.long(), ridx, torch.zeros(4, dtype=torch.int32))
+    index = sintax_torch.index_on(*sintax_torch.query_index(q.numpy(), sintax_torch.QUERY_SENTINEL),
+                                  4, "cpu")
+    kmers, row_off = torch.zeros(3, dtype=torch.int32), torch.tensor([0, 1, 3])
     with pytest.raises(ValueError, match="CUDA"):
-        sintax_torch.sintax_scores_launch(q, refk, ridx, torch.zeros(4, dtype=torch.int32))
+        sintax_torch.sintax_scores_rows_launch(index, kmers, row_off, ridx, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int64"):
+        sintax_torch.sintax_scores_rows(index, kmers, row_off.int(), ridx, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        sintax_torch.sintax_scores_rows(index, kmers, row_off, ridx, torch.zeros(5, dtype=torch.int32))
 
 
 def _edge_db(tmp_path, seed: int):
