@@ -84,6 +84,25 @@ failure; nothing catches it, so the exit code is non-zero):
                  sets in one run, 5,000 over two pair tiles, each against
                  the first 4,096 references), timed with its bound; and
                  kernel 1 (NM) timed at the classify cell's shapes.
+  7. stage-1 k-mers - kernels 4 (split k-mers) and 5 (open syncmers)
+                 against their plain versions on the card, exact, on
+                 kmer_edge_cases (reads of length 0, k - 1, k and k + 1,
+                 masked palindromes alone and back to back, homopolymers,
+                 low, all-equal and absent qualities, batches of 1 and 65,
+                 a 5,000-bp operon read, reads of one tile of positions, one
+                 more, three tiles and 12,000 bp) at k = 17 and 31 (kernel
+                 5 at c = 11 and one other c), with kernel 4's per-read
+                 lists and the card's count held to the host's too; then
+                 the kernel cell, 20,000 of write_reads' reads (29 M
+                 positions): both kernels exact and timed with their
+                 bounds, the compaction and the count's sort (a library
+                 call) timed apart, the card's count equal to the host
+                 scan's; then phase 5's reads through read_to_split_kmers
+                 on the host and on the card in turns, without -b and with
+                 it, with the stage's seconds by part (COUNT_STATS) and
+                 equal tables, and one
+                 `asv --stage1-backend mesh` held to DIGESTS, kernel 4
+                 launched by it.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
@@ -178,6 +197,41 @@ DIGESTS_CLASSIFICATION = {
     "export/merged_asv_taxonomy.tsv": "2aedcfcd0ab7b63cc4613542e3d9e83709992b3720b7160183d176792e4ffb34",
     "export/merged_taxon_counts.tsv": "b950ef75a0eae0162dc913bcf27c21c172e10100c37dbc459c7809a480f55d6c",
 }
+# phase 7: stage-1 device k-mers
+KMER_KS = (17, 31)          # kernel 4's k at the edge cases (17: -k's default)
+SYNC_KC = ((17, 11), (17, 7), (31, 11), (31, 21))  # kernel 5's (k, c) there (c = 11: -c's default)
+MIN_BQ = 25                 # --minimum-base-quality's default
+KMER_TILE = 2048            # positions a block stages at once (kTile, ops/csrc/split_kmers.cu, syncmers.cu)
+N_KMER_READS = 20_000       # the kernel cell
+KMER_SEED = SEED + 7
+STAGE1_ORDER = ("host", "mesh", "mesh", "host", "host", "mesh")  # read_to_split_kmers turns
+STAGE1_BLOOM_ORDER = ("host", "mesh", "mesh", "host")  # the same with -b, at the main-path cell
+STAGE1_BLOOM_SIZE = 1.0     # -b's value there
+# 32-bit integer operations a position the functions need, counted from the
+# C source with a 64-bit shift, or, and, add, xor or compare as two: kernel 4
+# rolls a forward and a reverse k-mer (14), masks both (4), compares them
+# (4), selects and flags (3) and gates (3); kernel 5 rolls an s-mer pair
+# (14), takes its minimum (3) and hashes it (19 64-bit operations, 38), rolls
+# and compares a k-mer pair (22), and tests the centre hash against the
+# minimum of each side of its window: a sliding minimum of one side's width
+# (prefix and suffix minima in blocks of that width and one to join them,
+# 3 64-bit minimums of 3, whatever the width), one for each distinct width
+# above 1, then a compare with each side (2) and their and (1).  Kernel 5's
+# design compares each of the c - 1 other hashes instead (3 each)
+KMER_OPS = {"split_kmers": 28, "syncmers": 77, "sliding_min": 9, "side_compare": 2}
+
+
+def syncmer_ops(c: int) -> int:
+    """KMER_OPS of kernel 5's function a position at c: the window of c
+    hashes has (c - 1) // 2 on the centre's left and the rest on its
+    right."""
+    sides = [w for w in ((c - 1) // 2, c - 1 - (c - 1) // 2) if w > 0]
+    if not sides:
+        return KMER_OPS["syncmers"]
+    return (KMER_OPS["syncmers"] + KMER_OPS["sliding_min"] * len({w for w in sides if w > 1})
+            + KMER_OPS["side_compare"] * len(sides) + len(sides) - 1)
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_forward_nm": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
     "sw_forward_payload": ("savont_tpu_torch/ops/csrc/sw_forward.cu", "savont_tpu/ops/align_pallas.py:296"),
@@ -193,6 +247,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     **{f"probe_roll_{mode}": ("savont_tpu_torch/ops/csrc/probe_roll.cu", "scripts/pallas_probe_roll.py:25")
        for mode in ("add", "shfl", "smem")},
     "sintax_scores": ("savont_tpu_torch/ops/csrc/sintax_scores.cu", "savont_tpu/parallel/mesh.py:977"),
+    "split_kmers": ("savont_tpu_torch/ops/csrc/split_kmers.cu", "savont_tpu/ops/kmers_jax.py:64"),
+    "syncmers": ("savont_tpu_torch/ops/csrc/syncmers.cu", "savont_tpu/ops/kmers_jax.py:104"),
 }
 
 
@@ -1321,6 +1377,302 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     return out
 
 
+def _palindrome(rng, k: int) -> bytes:
+    """A masked palindrome of length k: its first k // 2 bases are the
+    reverse complement of its last k // 2, the middle base any."""
+    from savont_tpu_torch.ops.encode import revcomp_bytes
+
+    half = rng.choice(list(b"ACGT"), k // 2).astype("uint8").tobytes()
+    return half + bytes([int(rng.choice(list(b"ACGT")))]) + revcomp_bytes(half)
+
+
+def kmer_edge_cases(k: int, seed: int = EDGE_SEED + 3) -> list[dict]:
+    """Read batches for kernels 4 and 5 at k: {"name", "reads": bytes,
+    "quals": phred arrays (uint8) or None, or a list with some None}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + k)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def rand(n: int) -> bytes:
+        return rng.choice(acgt, n).tobytes()
+
+    def q(n: int, v: int = 40):
+        return np.full(n, v, dtype=np.uint8)
+
+    def rq(n: int):
+        return rng.integers(2, 41, n).astype(np.uint8)
+
+    pal = rand(60) + _palindrome(rng, k) + rand(70) + _palindrome(rng, k) + rand(50)
+    pal_run = b"".join(_palindrome(rng, k) for _ in range(20))
+    low = q(800)
+    for v, at in ((5, 100), (MIN_BQ - 1, 200), (MIN_BQ, 300), (0, 400)):
+        low[at : at + 10] = v
+    lens_q = [q(n) for n in (0, k - 1, k, k + 1)]
+    lens_q[3][k // 2] = 3  # one position, its middle base low
+    reads65 = [rand(int(n)) for n in rng.integers(100, 1600, 65)]
+    tile_lens = (KMER_TILE + k - 1, KMER_TILE + k, 3 * KMER_TILE + k - 1, 12_000)
+    cases = [
+        ("lengths", [rand(n) for n in (0, k - 1, k, k + 1)], lens_q),
+        ("palindrome", [pal], [q(len(pal))]),
+        ("palindrome_run", [pal_run], [q(len(pal_run))]),
+        ("homopolymer", [b"A" * 300, b"T" * 300, b"C" * 40 + b"G" * 40], None),
+        ("low_mid_quality", [rand(800)], [low]),
+        ("all_equal_quality", [rand(800), rand(500)], [q(800, 12), q(500, 40)]),
+        ("no_quality", [rand(n) for n in (300, 900, 1450)], None),
+        ("some_without_quality", [rand(n) for n in (400, 500, 600, 700, 800)],
+         [rq(400), None, rq(600), None, rq(800)]),
+        ("one_read", [rand(1450)], [rq(1450)]),
+        ("65_reads", reads65, [rq(len(r)) for r in reads65]),
+        ("operon_5000", [rand(5000)], [rq(5000)]),
+        ("tile_edges", [rand(n) for n in tile_lens], [rq(n) for n in tile_lens]),
+    ]
+    return [{"name": n, "reads": r, "quals": qs} for n, r, qs in cases]
+
+
+def kmer_bound(name: str, bases: int, positions: int, reads: int, has_qual: bool,
+               int32_ops_per_s: float, c: int = 11) -> dict:
+    """Least time for kernel 4's or 5's function on a batch: the larger of
+    its bytes (each base's code, and phred for kernel 4, read once; the two
+    offset arrays; 8 + 1 B written a position) over HBM_BYTES_PER_S and its
+    integer operations (KMER_OPS a position; kernel 5's syncmer_ops(c))
+    over the card's measured int32 rate."""
+    per_pos = KMER_OPS["split_kmers"] if name == "split_kmers" else syncmer_ops(c)
+    nbytes = bases * (2 if name == "split_kmers" and has_qual else 1) + 16 * (reads + 1) + 9 * positions
+    ops = per_pos * positions
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _exact(tag: str, got, want) -> int:
+    """0 when every pair of tensors is equal (tolerance 0); raises otherwise."""
+    import torch
+
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            n = int((a != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"{tag}: the kernel differs from its plain version at {n} "
+                                 f"positions (shapes {tuple(a.shape)} / {tuple(b.shape)})")
+    return 0
+
+
+def check_kmer_edges() -> int:
+    """Kernels 4 and 5 against their plain versions on the card, exact, on
+    kmer_edge_cases at every k of KMER_KS and (k, c) of SYNC_KC; kernel 4's
+    per-read lists (device_split_kmers) and the card's count
+    (split_kmer_count) against the port's host split_kmer_mid and
+    count_flagged_kmers too.  Returns the number of (case, k) pairs."""
+    import numpy as np
+
+    from savont_tpu_torch.ops import kmers_torch as kt
+    from savont_tpu_torch.ops.encode import encode_seq
+    from savont_tpu_torch.ops.kmers import count_flagged_kmers, split_kmer_mid
+    from savont_tpu_torch.parallel.mesh import split_kmer_count
+
+    n = 0
+    for k in KMER_KS:
+        for case in kmer_edge_cases(k):
+            codes = [encode_seq(r) for r in case["reads"]]
+            quals = case["quals"]
+            batch = kt.read_batch(codes, quals, k, "cuda")
+            got4 = kt.split_kmers_batch(batch, MIN_BQ)
+            _exact(f"kernel 4, {case['name']}, k={k}", got4,
+                   kt.split_kmers_batch_reference(batch, MIN_BQ))
+            per_read = kt.device_split_kmers(codes, quals, k, MIN_BQ, "cuda")
+            host = [split_kmer_mid(c, None if quals is None else quals[i], k, MIN_BQ)
+                    for i, c in enumerate(codes)]
+            if any(not np.array_equal(a, b) for a, b in zip(per_read, host)) or len(per_read) != len(host):
+                raise AssertionError(f"device_split_kmers differs from split_kmer_mid: "
+                                     f"{case['name']}, k={k}")
+            got_t, want_t = split_kmer_count(codes, quals, k, MIN_BQ, "cuda"), count_flagged_kmers(host)
+            if any(not np.array_equal(a, b) for a, b in zip(got_t, want_t)):
+                raise AssertionError(f"split_kmer_count differs from count_flagged_kmers: "
+                                     f"{case['name']}, k={k}")
+            cs = [c for kk, c in SYNC_KC if kk == k]
+            for c in cs:
+                _exact(f"kernel 5, {case['name']}, k={k}, c={c}", kt.syncmer_batch(batch, c),
+                       kt.syncmer_batch_reference(batch, c))
+            n += 1
+            log(f"  edge {case['name']}, k={k}: {len(codes)} reads, {batch.n_pos} positions, "
+                f"{int(got4[1].sum())} valid, {len(got_t[0])} distinct: kernel 4 == plain == "
+                f"split_kmer_mid, the card's count == count_flagged_kmers, kernel 5 == plain "
+                f"at c {cs} (exact)")
+    return n
+
+
+def kmer_cell(work: Path, int32_ops_per_s: float) -> dict:
+    """Kernels 4 and 5 at the kernel cell, N_KMER_READS of write_reads'
+    reads: each against its plain version on the card (exact), timed
+    queued (20 launches) and single with its plain version and bound; the
+    compaction and the count's sort (torch.sort + unique_consecutive, a
+    library call) timed apart; the card's split_kmer_count equal to the
+    port's host scan + count (split_kmers_native, count_flagged_kmers)."""
+    import numpy as np
+    import torch
+
+    from savont_tpu_torch.io.fastx import read_fastx_records
+    from savont_tpu_torch.ops import kmers_torch as kt
+    from savont_tpu_torch.ops.kmers import count_flagged_kmers
+    from savont_tpu_torch.ops.kmers_native import split_kmers_native
+    from savont_tpu_torch.parallel.mesh import count_flagged, split_kmer_count
+    from savont_tpu_torch.pipeline.stage1_kmers import _batch_encode
+
+    d = work / "kmer_cell"
+    d.mkdir()
+    write_reads(d / "reads.fq.gz", d / "templates.fa", np.random.default_rng(KMER_SEED), N_KMER_READS)
+    recs = read_fastx_records(str(d / "reads.fq.gz"))
+    codes, quals = _batch_encode([r.seq for r in recs], [r.qual for r in recs])
+    k, c = KMER_KS[0], 11
+    count_flagged_kmers(split_kmers_native(codes[:10], quals[:10], k, MIN_BQ))  # builds the library
+    t0 = time.perf_counter()
+    host = count_flagged_kmers(split_kmers_native(codes, quals, k, MIN_BQ), threads=4)
+    host_s = time.perf_counter() - t0
+    split_kmer_count(codes, quals, k, MIN_BQ, "cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = split_kmer_count(codes, quals, k, MIN_BQ, "cuda")
+    card_s = time.perf_counter() - t0
+    if any(not np.array_equal(a, b) for a, b in zip(card, host)) or card[1].dtype != host[1].dtype:
+        raise AssertionError("the card's split_kmer_count differs from the host count at the kernel cell")
+
+    batch = kt.read_batch(codes, quals, k, "cuda")
+    bases = int(batch.codes.numel())
+    kt.reset_counters()
+    keys, valid = kt.split_kmers_batch(batch, MIN_BQ)
+    flags, kmers = kt.syncmer_batch(batch, c)
+    launches = dict(kt.LAUNCHES)
+    out = {"reads": len(codes), "bases": bases, "positions": batch.n_pos, "host_count_s": host_s,
+           "card_count_s": card_s, "distinct": len(host[0]), "launches": launches}
+    out["split_kmers"] = {
+        "max_abs_err": _exact("kernel 4, kernel cell", (keys, valid),
+                              kt.split_kmers_batch_reference(batch, MIN_BQ)),
+        "plain_ms": cuda_ms(lambda: kt.split_kmers_batch_reference(batch, MIN_BQ), 3),
+        "ms": cuda_ms(lambda: kt.split_kmers_launch(batch, MIN_BQ, keys, valid), 20),
+        "single_ms": cuda_ms(lambda: kt.split_kmers_launch(batch, MIN_BQ, keys, valid), 1, False),
+        **kmer_bound("split_kmers", bases, batch.n_pos, len(codes), True, int32_ops_per_s)}
+    out["syncmers"] = {
+        "c": c,
+        "max_abs_err": _exact("kernel 5, kernel cell", (flags, kmers),
+                              kt.syncmer_batch_reference(batch, c)),
+        "plain_ms": cuda_ms(lambda: kt.syncmer_batch_reference(batch, c), 3),
+        "ms": cuda_ms(lambda: kt.syncmer_launch(batch, c, flags, kmers), 20),
+        "single_ms": cuda_ms(lambda: kt.syncmer_launch(batch, c, flags, kmers), 1, False),
+        **kmer_bound("syncmers", bases, batch.n_pos, len(codes), False, int32_ops_per_s, c)}
+    for name in ("split_kmers", "syncmers"):  # the outputs of the timed launches too
+        got = (keys, valid) if name == "split_kmers" else (flags, kmers)
+        want = (kt.split_kmers_batch_reference(batch, MIN_BQ) if name == "split_kmers"
+                else kt.syncmer_batch_reference(batch, c))
+        _exact(f"{name}, timed launches", got, want)
+    v = valid.bool()
+    flagged = keys[v]
+    packed = ((flagged & kt.BARE) << 1) | (flagged < 0).long()
+    out["compact_ms"] = cuda_ms(lambda: keys[v], 20)
+    out["sort_ms"] = cuda_ms(lambda: torch.sort(packed), 20)
+    out["sort_count_ms"] = cuda_ms(lambda: count_flagged(flagged), 20)
+    out["flagged"] = int(flagged.numel())
+    return out
+
+
+def stage1_turns(fq: Path, order=STAGE1_ORDER, bloom: float = 0.0, want=None) -> tuple[list, tuple]:
+    """The port's read_to_split_kmers on fq, on the host and on the card in
+    turns (order), with -b `bloom` when it is above 0, each from a cold
+    parse, with COUNT_STATS and the launches counted from 0 just before it;
+    every table equal to `want`, or to the first turn's.  Returns the turns
+    and that table."""
+    import numpy as np
+
+    from savont_tpu_torch.config import ClusterArgs
+    from savont_tpu_torch.ops import kmers_torch as kt
+    from savont_tpu_torch.pipeline import stage1_kmers as s1
+
+    turns, tag = [], " -b" if bloom > 0 else ""
+    for backend in order:
+        s1._READ_CACHE.clear()
+        s1._ENCODE_CACHE.clear()
+        s1._READ_CACHE_BYTES = 0
+        s1.reset_count_stats()
+        kt.reset_counters()
+        t0 = time.perf_counter()
+        table = s1.read_to_split_kmers(ClusterArgs(input_files=[str(fq)], threads=4,
+                                                   bloom_filter_size=bloom,
+                                                   stage1_backend=backend, device="cuda"))
+        wall = time.perf_counter() - t0
+        want = want or table
+        if any(not np.array_equal(a, b) for a, b in zip(table, want)):
+            raise AssertionError(f"stage 1 on {backend}{tag} gives another table than the first turn's")
+        n = 1 if backend == "mesh" else 0
+        if kt.LAUNCHES["split_kmers"] != n or any(kt.REFERENCE_CALLS.values()):
+            raise AssertionError(f"stage 1 on {backend}{tag}: launches {kt.LAUNCHES}, plain calls "
+                                 f"{kt.REFERENCE_CALLS}")
+        turns.append({"backend": backend, "bloom": bloom, "wall_s": wall,
+                      "parts": {k: v for k, v in s1.COUNT_STATS.items() if v}})
+        log(f"  stage 1, {backend}{tag}: {wall:.4f} s, {len(table[0])} k-mers retained; "
+            f"{json.dumps(turns[-1]['parts'])}")
+    return turns, want
+
+
+def stage1_cell(work: Path) -> dict:
+    """The stage-1 route at the main-path cell (phase 5's reads) in turns
+    (stage1_turns), without -b and with it (STAGE1_BLOOM_ORDER: the card's
+    per-read lists into the host count), every table equal; then one whole `asv --stage1-backend mesh` through the
+    CLI, held to DIGESTS and NM=0, with every count set to 0 just before
+    it."""
+    from savont_tpu_torch import cli
+    from savont_tpu_torch.ops import align_torch
+    from savont_tpu_torch.ops import kmers_torch as kt
+    from savont_tpu_torch.parallel.mesh import reset_route_stats
+    from savont_tpu_torch.pipeline import stage1_kmers as s1
+    from savont_tpu_torch.pipeline.asv import STAGE_SECONDS
+    from savont_tpu_torch.validate import validate_asvs
+
+    fq, tpl = work / "reads.fq.gz", work / "templates.fa"
+    log(f"stage 1 at the main-path cell ({N_READS} reads), in turns:")
+    turns, table = stage1_turns(fq)
+    log(f"  the same with -b {STAGE1_BLOOM_SIZE}: the card's extraction into the host's "
+        "counts, held to the same table")
+    turns += stage1_turns(fq, STAGE1_BLOOM_ORDER, STAGE1_BLOOM_SIZE, table)[0]
+    kt.reset_counters()
+    align_torch.reset_counters()
+    reset_route_stats()
+    s1.reset_count_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(work / "stage1_mesh"),
+                   "--device", "cuda", "-t", "4", "--stage1-backend", "mesh"])
+    wall = time.perf_counter() - t0
+    launches, plain = dict(kt.LAUNCHES), {**kt.REFERENCE_CALLS, **align_torch.REFERENCE_CALLS}
+    if rc != 0:
+        raise AssertionError(f"savont_tpu_torch asv --stage1-backend mesh exited {rc}")
+    got = output_digests(work / "stage1_mesh")
+    if got != DIGESTS:
+        raise AssertionError(f"asv --stage1-backend mesh: outputs differ from the pinned digests: {got}")
+    val = validate_asvs(str(work / "stage1_mesh" / "final_asvs.fasta"), str(tpl))
+    if not val or any(v.nm != 0 for v in val):
+        raise AssertionError(f"asv --stage1-backend mesh: ASVs not all NM=0: {val}")
+    if launches["split_kmers"] < 1 or any(plain.values()):
+        raise AssertionError(f"asv --stage1-backend mesh: launches {launches}, plain calls {plain}")
+    log(f"  asv --stage1-backend mesh: {wall:.2f} s, {len(val)} ASVs all NM=0, outputs equal the "
+        f"pinned digests; launches {launches}, {align_torch.LAUNCHES}; stage seconds "
+        f"{ {k: round(v, 3) for k, v in STAGE_SECONDS.items()} }; stage 1's count "
+        f"{json.dumps({k: v for k, v in s1.COUNT_STATS.items() if v})}")
+    return {"turns": turns, "asv_launches": launches, "asv_wall_s": wall}
+
+
+def stage1_kmers_phase(work: Path, int32_ops_per_s: float) -> dict:
+    """Phase 7: kernels 4 and 5 on their edge cases, at the kernel cell, and
+    the stage-1 route at the main-path cell."""
+    n = check_kmer_edges()
+    log(f"  kmer edge cases: {n} (case, k) pairs, k {KMER_KS}, (k, c) {SYNC_KC}: exact")
+    phase_done("phase 7, edge cases")
+    cell = kmer_cell(work, int32_ops_per_s)
+    log("  kmer cell: " + json.dumps(cell))
+    log(f"stage 1 at the kernel cell ({N_KMER_READS} reads), in turns:")
+    cell["turns"] = stage1_turns(work / "kmer_cell" / "reads.fq.gz")[0]
+    phase_done("phase 7, kernel cell")
+    return {"cell": cell, **stage1_cell(work)}
+
+
 def main() -> int:
     if not (ROOT / "savont_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -1479,10 +1831,12 @@ def main() -> int:
         mp = main_path(work, rng)
         phase_done("phase 5")
         cls = classification(work, roof["int32_tops"] * 1e12)
+        phase_done("phase 6")
+        km = stage1_kmers_phase(work, roof["int32_tops"] * 1e12)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    phase_done("phase 6")
+    phase_done("phase 7")
     bounds = sw_bounds(res["shape"], roof["int32_tops"] * 1e12)
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -1506,6 +1860,18 @@ def main() -> int:
                      **{k: k3["mesh"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "single_ms")},
                      "shapes": k3}
+        elif name in ("split_kmers", "syncmers"):
+            # launches: the asv --stage1-backend mesh run's, 0 for kernel 5,
+            # which is on no path (as in the JAX package); the kernel cell's
+            # one untimed call beside them.  No single PyTorch call computes
+            # either; kernel 4's entry carries the count's sort beside it
+            r = km["cell"][name]
+            entry = {"launches": km["asv_launches"][name],
+                     "cell_launches": km["cell"]["launches"][name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "single_ms", "plain_ms", "bound_ms",
+                                          "bound_by")}}
+            if name == "split_kmers":
+                entry.update({k: km["cell"][k] for k in ("compact_ms", "sort_ms", "sort_count_ms")})
         else:
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],

@@ -98,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
     # hidden no-op, mirrored from cli.rs:176-179 (driven nowhere: main.rs:135)
     a.add_argument("--phase-heterogeneous", action="store_true", help=argparse.SUPPRESS)
     a.add_argument("--device", choices=["cuda", "cpu"], default="cuda", help=DEVICE_HELP)
+    a.add_argument(
+        "--stage1-backend", choices=["host", "mesh"], default="host",
+        help="route of the stage-1 split-k-mer count: host (default) scans and counts on the "
+        "CPU, mesh extracts on the device (kernel 4) and sorts and counts there; same outputs",
+    )
     for stage, what in ((4, "pileups"), (7, "tie-break and EM")):
         a.add_argument(
             f"--stage{stage}-backend", choices=["mesh", "host"], default="mesh",

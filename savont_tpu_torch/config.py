@@ -52,9 +52,14 @@ class ClusterArgs:
     # run their alignments on `device` and give the same outputs
     stage4_backend: str = "mesh"
     stage7_backend: str = "mesh"
+    # the route of the stage-1 split-k-mer count: "host", the native scan and
+    # count on the CPU, or "mesh", kernel 4 on `device` with the sort and
+    # count there (with -b, kernel 4's per-read lists into the host count).
+    # Same outputs
+    stage1_backend: str = "host"
 
     def __post_init__(self) -> None:
-        for name in ("stage4_backend", "stage7_backend"):
+        for name in ("stage1_backend", "stage4_backend", "stage7_backend"):
             if getattr(self, name) not in ("mesh", "host"):
                 raise ValueError(f"{name} must be 'mesh' or 'host', got {getattr(self, name)!r}")
 

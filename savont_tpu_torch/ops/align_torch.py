@@ -14,6 +14,7 @@ the CPU, and for CUDA tensors launches the kernel or raises.
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -83,6 +84,33 @@ def timed_launch(device):
         yield
         end.record()
         _EVENTS.append((start, end))
+
+
+class PartClock:
+    """Seconds of a route's consecutive parts, added into a stats dict by
+    name: on the card the time between CUDA events recorded at the marks
+    (no wait until add_to), on the CPU the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = [("", self._now())]
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def mark(self, name: str) -> None:
+        """End the part `name` here."""
+        self.marks.append((name, self._now()))
+
+    def add_to(self, stats: dict) -> None:
+        if self.cuda:
+            self.marks[-1][1].synchronize()
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            stats[name] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
 
 
 def jobs_to_tensors(jobs, device) -> tuple[torch.Tensor, ...]:

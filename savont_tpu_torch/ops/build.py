@@ -77,6 +77,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, i,            # kmers, row_off, ridx, R
         p, p,                  # acc, stream
     ]
+    lib.split_kmers_launch.restype = i
+    lib.split_kmers_launch.argtypes = [
+        p, p, p, p,            # codes, phred, off, out_off
+        i, i, i,               # N, k, min_bq
+        p, p, p,               # keys, valid, stream
+    ]
+    lib.syncmers_launch.restype = i
+    lib.syncmers_launch.argtypes = [
+        p, p, p,               # codes, off, out_off
+        i, i, i,               # N, k, s
+        p, p, p,               # flags, kmers, stream
+    ]
 
 
 def _compile(srcs: list[Path], so: Path) -> str:

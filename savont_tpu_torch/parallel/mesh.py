@@ -1,4 +1,4 @@
-"""The all-device routes of stages 4 and 7, on one device.
+"""The all-device routes of stages 1, 4 and 7, on one device.
 
 Counterparts of the JAX package's parallel/mesh.py mesh_stage4_pileups and
 mesh_stage7_tie_break (its SAVONT_STAGE4_BACKEND / SAVONT_STAGE7_BACKEND =
@@ -26,6 +26,10 @@ the reference's psum over the mesh is the identity on one device.
 When the flat planner declines an input (None: sizes outside its packed key
 widths) a route hands the work to the per-job consumers, which launch the
 same kernels on the same device; ROUTE_STATS counts that.
+
+Stage 1's split-k-mer count (split_kmer_count, the one-device form of the
+reference's sharded_split_kmer_count) runs kernel 4 over the whole batch and
+sorts and counts on the device.
 """
 from __future__ import annotations
 
@@ -41,12 +45,13 @@ from ..ops import traceback_torch
 from ..ops.align import resolve_band
 from ..ops.align_batch import _plan_soa_indexed, align_pairs_nm_values_indexed, plan_job
 from ..ops.align_torch import (
-    LAUNCHES, events_ms, gather_rows, kernel_events, length_chunks_lens, plan_tensors,
-    plan_to_device, sw_forward,
+    LAUNCHES, PartClock, events_ms, gather_rows, kernel_events, length_chunks_lens,
+    plan_tensors, plan_to_device, sw_forward,
 )
 from ..ops.em import em_abundances_torch
 from ..ops.encode import _RC_TABLE
 from ..ops.host_dp import run_jobs_host
+from ..ops.kmers_torch import BARE, flagged_on_device
 from ..ops.pileup_torch import new_count_buffers, strip_sinks, sw_pileup_counts
 
 log = logging.getLogger("savont")
@@ -409,3 +414,54 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
         else:
             cons.hp_lengths = np.ones(len(cons.sequence), dtype=np.uint8)
     return pms
+
+
+# ── stage-1 split-k-mer count ─────────────────────────────────────────────
+
+
+def count_flagged(flagged: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What ops.kmers.count_flagged_kmers computes, on flagged's device:
+    the bare k-mers (bit 63 cleared) ascending, int64, and counts (n, 2)
+    int32, column 1 the occurrences flagged forward-canonical.  One sort of
+    (bare << 1) | flag (a bare k-mer has at most 62 bits; the flagged value
+    sorted as signed would put the flagged keys first), the run lengths,
+    and a fold of the two strands of each k-mer into one row."""
+    packed = torch.sort(((flagged & BARE) << 1) | (flagged < 0).long()).values
+    runs, n = torch.unique_consecutive(packed, return_counts=True)
+    kmers, row = torch.unique_consecutive(runs >> 1, return_inverse=True)
+    counts = torch.zeros((kmers.shape[0], 2), dtype=torch.int32, device=flagged.device)
+    counts[row, runs & 1] = n.int()
+    return kmers, counts
+
+
+def split_kmer_count(code_list, phred_list, k: int, min_bq: int, device,
+                     stats: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Stage 1's strand-split count of the flagged canonical split k-mers of
+    every read, on `device`: (bare k-mers ascending, uint64; counts (n, 2)
+    uint32 indexed by the strand flag), what ops.kmers.count_flagged_kmers
+    returns for the reads' split_kmer_mid lists.
+
+    The reads are uploaded once; kernel 4 extracts every position's key
+    and validity, the valid keys are compacted on the device
+    (flagged_on_device), sorted and counted there (count_flagged), and the
+    table is fetched once.  The
+    reference's sharded_split_kmer_count (savont_tpu/parallel/mesh.py:1333)
+    also routes each key to the device that owns its slice of the key space
+    with one all_to_all before the sort; on one device that step is the
+    identity and is left to the multi-device route.  With `stats`, the
+    parts' seconds are added to upload_s, kernel4_s, compact_s,
+    sort_count_s and fetch_s, and the sizes to positions, flagged and
+    distinct."""
+    dev = resolve_device(device)
+    clock = PartClock(dev)
+    batch, flagged, _ = flagged_on_device(code_list, phred_list, k, min_bq, dev, clock)
+    kmers, counts = count_flagged(flagged)
+    clock.mark("sort_count_s")
+    out = kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().view(np.uint32)
+    clock.mark("fetch_s")
+    if stats is not None:
+        clock.add_to(stats)
+        stats["positions"] += batch.n_pos
+        stats["flagged"] += flagged.shape[0]
+        stats["distinct"] += len(out[0])
+    return out

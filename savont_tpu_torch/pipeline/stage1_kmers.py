@@ -7,6 +7,7 @@ sharded hash maps become a sort/segment-reduce over all reads' split k-mers.
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 
@@ -168,13 +169,34 @@ def _iter_reads_for_counting(files: list[str]):
             yield seq, qual
 
 
+# stage 1's count by part, summed over calls: seconds of parse + encode,
+# of the device route's upload, kernel 4, compaction, sort + count and fetch
+# (CUDA events between its marks, ops.align_torch.PartClock), of the host
+# scan + count (the host route's streamed count includes its parse), and of
+# the strand filter; reads, positions, flagged k-mers and distinct k-mers
+# (device route), and the route of the last call
+COUNT_STATS = {"calls": 0, "route": "", "reads": 0, "positions": 0, "flagged": 0, "distinct": 0,
+               "parse_encode_s": 0.0, "upload_s": 0.0, "kernel4_s": 0.0, "compact_s": 0.0,
+               "sort_count_s": 0.0, "fetch_s": 0.0, "host_count_s": 0.0, "filter_s": 0.0}
+
+
+def reset_count_stats() -> None:
+    for key, v in COUNT_STATS.items():
+        COUNT_STATS[key] = type(v)()
+
+
 def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
     """Count canonical split k-mers with strand-split counts over all input
     files (seq_parse.rs:12-78).  Returns (kmers sorted, counts[n,2]) after
-    the both-strands/multiplicity filter."""
+    the both-strands/multiplicity filter.  args.stage1_backend "mesh" runs
+    the extraction (kernel 4) and, without -b, the count on args.device."""
     from ..ops.kmers_native import get_scan_lib, split_kmers_native
 
     k = args.kmer_size
+    stats = COUNT_STATS
+    stats["calls"] += 1
+    stats["route"] = args.stage1_backend
+    on_device = args.stage1_backend == "mesh"
     if args.aggressive_bloom and args.bloom_filter_size <= 0:
         log.warning(
             "--aggressive-bloom has no effect without -b/--bloom-filter-size: "
@@ -182,7 +204,8 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
             "applies to the Bloom prefilter pass (seq_parse.rs:225-258)"
         )
     if (
-        args.bloom_filter_size <= 0
+        not on_device
+        and args.bloom_filter_size <= 0
         and get_scan_lib() is not None
         and _sortcount_available()
     ):
@@ -192,8 +215,13 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
         # (which releases the GIL).  Counting is per-k-mer commutative, so
         # chunk boundaries cannot change the result (same merge as
         # _count_chunked_native; parity pinned by tests).
+        t0 = time.perf_counter()
         kmers, counts, n_reads = _streamed_count(args)
+        stats["host_count_s"] += time.perf_counter() - t0
+        stats["reads"] += n_reads
         return _finish_split_kmers(kmers, counts, n_reads, args)
+
+    t0 = time.perf_counter()
 
     # cached per-path encodes (stage 1.5 reuses them); 'rc'-tagged reads are
     # re-encoded from the flipped bytes — code-level revcomp would differ on
@@ -218,7 +246,28 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
             codes_list[i] = c
             phred_list[i] = p
     n_reads = len(codes_list)
-    if get_scan_lib() is not None:
+    stats["reads"] += n_reads
+    t1 = time.perf_counter()
+    stats["parse_encode_s"] += t1 - t0
+    t0 = t1
+    if on_device:
+        # the device route (the reference's SAVONT_DEVICE_KMERS branch):
+        # kernel 4 over the whole batch; without -b the count stays on the
+        # device too and one table comes back
+        if args.bloom_filter_size <= 0:
+            from ..parallel.mesh import split_kmer_count
+
+            kmers, counts = split_kmer_count(
+                codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
+            )
+            return _finish_split_kmers(kmers, counts, n_reads, args)
+        from ..ops.kmers_torch import device_split_kmers
+
+        per_read = device_split_kmers(
+            codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
+        )
+        t0 = time.perf_counter()  # the host count starts here
+    elif get_scan_lib() is not None:
         per_read = split_kmers_native(codes_list, phred_list, k, args.minimum_base_quality)
     else:
         per_read = [
@@ -250,6 +299,7 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
                 )
         else:
             kmers, counts = count_flagged_kmers(per_read, threads=args.threads)
+    stats["host_count_s"] += time.perf_counter() - t0
     return _finish_split_kmers(kmers, counts, n_reads, args)
 
 
@@ -259,7 +309,9 @@ def _finish_split_kmers(
     """Shared strand/multiplicity filter + starvation abort
     (seq_parse.rs:69-72)."""
     raw_n = len(kmers)
+    t0 = time.perf_counter()
     kmers, counts = filter_counted_kmers(kmers, counts, args.single_strand)
+    COUNT_STATS["filter_s"] += time.perf_counter() - t0
     log.info("counted %d reads; %d split-kmers, %d retained after strand filter", n_reads, raw_n, len(kmers))
     if raw_n > 0 and len(kmers) < raw_n / 1000:
         raise SystemExit(

@@ -89,11 +89,11 @@ def test_classification_digests_equal_host_runs(host_runs, monkeypatch):
 def test_kernels_table_names_every_counter():
     """Every kernel the port counts launches of stands in chip_smoke's table
     with its source in the repository."""
-    from savont_tpu_torch.ops import align_torch, sintax_torch
+    from savont_tpu_torch.ops import align_torch, kmers_torch, sintax_torch
     from savont_tpu_torch.probes import bitcast, i16ops, roll, roofline
 
     counted = set(align_torch.LAUNCHES) - {"walk_overflow"}
-    for mod in (roofline, bitcast, i16ops, roll, sintax_torch):
+    for mod in (roofline, bitcast, i16ops, roll, sintax_torch, kmers_torch):
         counted |= set(mod.LAUNCHES)
     assert counted == set(chip_smoke.KERNELS)
     for src, rep in chip_smoke.KERNELS.values():
@@ -158,6 +158,86 @@ def test_sintax_bound_from_shapes(shape):
         assert b["bound_by"] == "bytes"
     if shape == "every_hit":
         assert b["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("k", chip_smoke.KMER_KS)
+def test_kmer_edge_cases_cover_the_edges(k):
+    """Phase 7's edge cases at k: reads of length 0, k - 1, k and k + 1;
+    masked palindromes (dropped, so fewer valid positions than positions);
+    homopolymers; a low middle-base quality, all-equal and absent
+    qualities; batches of 1 and 65; a 5,000-bp read; reads of one tile of
+    positions, one more, three tiles and past them."""
+    from savont_tpu_torch.ops.encode import encode_seq
+    from savont_tpu_torch.ops.kmers import split_kmer_mid
+
+    cases = {c["name"]: c for c in chip_smoke.kmer_edge_cases(k)}
+    assert [len(r) for r in cases["lengths"]["reads"]] == [0, k - 1, k, k + 1]
+    for name in ("palindrome", "palindrome_run"):
+        (r,) = cases[name]["reads"]
+        kept = split_kmer_mid(encode_seq(r), None, k, chip_smoke.MIN_BQ)
+        assert len(kept) < len(r) - k + 1
+    assert len(cases["palindrome_run"]["reads"][0]) == 20 * k
+    assert any(set(r) == {ord("A")} for r in cases["homopolymer"]["reads"])
+    low = cases["low_mid_quality"]["quals"][0]
+    assert low.min() < chip_smoke.MIN_BQ and len(set(low.tolist())) > 1
+    assert all(len(set(q.tolist())) == 1 for q in cases["all_equal_quality"]["quals"])
+    assert cases["no_quality"]["quals"] is None
+    assert any(q is None for q in cases["some_without_quality"]["quals"])
+    assert len(cases["one_read"]["reads"]) == 1 and len(cases["65_reads"]["reads"]) == 65
+    assert [len(r) for r in cases["operon_5000"]["reads"]] == [5000]
+    tile = chip_smoke.KMER_TILE
+    lens = [len(r) for r in cases["tile_edges"]["reads"]]
+    assert lens[:3] == [tile + k - 1, tile + k, 3 * tile + k - 1] and lens[3] > 3 * tile + k
+
+
+def test_kmer_tile_matches_the_kernel_sources():
+    """KMER_TILE is the kTile of both kernel sources (kThreads x kRun)."""
+    import re
+
+    for src in ("split_kmers.cu", "syncmers.cu"):
+        text = (ROOT / "savont_tpu_torch" / "ops" / "csrc" / src).read_text()
+        threads = int(re.search(r"kThreads = (\d+);", text).group(1))
+        run = int(re.search(r"kRun = (\d+);", text).group(1))
+        assert threads * run == chip_smoke.KMER_TILE
+
+
+@pytest.mark.parametrize("name", ["split_kmers", "syncmers"])
+def test_kmer_bound_from_shapes(name):
+    """Kernels 4 and 5 are bound by the larger of their bytes (codes, and
+    phreds for kernel 4, read once; the offsets; 9 B written a position)
+    and the integer operations their functions need a position over the
+    int32 rate.  At the kernel cell's shape (20,000 reads, 28,963,837
+    bases, 28,643,837 positions) and the measured 32.6 T int32 ops/s both
+    are bound by bytes: kernel 4 about 0.0943 ms, kernel 5 at c = 11 about
+    0.0857 ms (its 91 operations a position take 0.080)."""
+    bases, pos, reads = 28_963_837, 28_643_837, 20_000
+    b = chip_smoke.kmer_bound(name, bases, pos, reads, name == "split_kmers", 32.6e12)
+    nbytes = bases * (2 if name == "split_kmers" else 1) + 16 * (reads + 1) + 9 * pos
+    per_pos = 28 if name == "split_kmers" else 91
+    assert b["bytes"] == nbytes and b["ops"] == per_pos * pos
+    assert b["bound_ms"] == max(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3, per_pos * pos / 32.6e12 * 1e3)
+    assert b["bound_by"] == "bytes"
+    assert abs(b["bound_ms"] - {"split_kmers": 0.0943, "syncmers": 0.0857}[name]) < 0.0001
+
+
+@pytest.mark.parametrize("c, ops", [(1, 77), (2, 79), (3, 82), (4, 91), (7, 91), (8, 100),
+                                    (11, 91), (21, 91), (31, 91)])
+def test_syncmer_ops_do_not_grow_with_the_window(c, ops):
+    """Kernel 5's function needs a count a position that stops growing with
+    c: 77 for the hashes and k-mers, 9 for each sliding minimum (one for
+    each distinct side width above 1: two for an even c from 6, whose sides
+    differ by one), 2 for a compare with each side and 1 for their and; c =
+    1 has no other hash to compare."""
+    assert chip_smoke.syncmer_ops(c) == ops
+
+
+def test_stage1_turns_alternate():
+    """The stage-1 route is timed on both routes in turns, as often each,
+    without -b and with it."""
+    for order in (chip_smoke.STAGE1_ORDER, chip_smoke.STAGE1_BLOOM_ORDER):
+        assert order.count("host") == order.count("mesh") >= 2
+        assert order[:2] == ("host", "mesh") and order[2:4] == ("mesh", "host")
+    assert chip_smoke.STAGE1_ORDER.count("mesh") >= 3 and chip_smoke.STAGE1_BLOOM_SIZE > 0
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
