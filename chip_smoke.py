@@ -90,7 +90,11 @@ failure; nothing catches it, so the exit code is non-zero):
                  masked palindromes alone and back to back, homopolymers,
                  low, all-equal and absent qualities, batches of 1 and 65,
                  a 5,000-bp operon read, reads of one tile of positions, one
-                 more, three tiles and 12,000 bp) at k = 17 and 31 (kernel
+                 more, three tiles and 12,000 bp; reads from every byte
+                 offset mod 16, the last ending the buffer off a 16-byte
+                 boundary; reads one position each side of one and two
+                 rounds of a position a thread and of a tile, qualities all
+                 equal or equal but for the last base) at k = 17 and 31 (kernel
                  5 at c = 11 and one other c), with kernel 4's per-read
                  lists and the card's count held to the host's too; then
                  the kernel cell, 20,000 of write_reads' reads (29 M
@@ -202,13 +206,15 @@ KMER_KS = (17, 31)          # kernel 4's k at the edge cases (17: -k's default)
 SYNC_KC = ((17, 11), (17, 7), (31, 11), (31, 21))  # kernel 5's (k, c) there (c = 11: -c's default)
 MIN_BQ = 25                 # --minimum-base-quality's default
 KMER_TILE = 2048            # positions a block stages at once (kTile, ops/csrc/split_kmers.cu, syncmers.cu)
+KMER_THREADS = 256          # threads a block, one position each in turn (kThreads, the same sources)
 N_KMER_READS = 20_000       # the kernel cell
 KMER_SEED = SEED + 7
 STAGE1_ORDER = ("host", "mesh", "mesh", "host", "host", "mesh")  # read_to_split_kmers turns
 STAGE1_BLOOM_ORDER = ("host", "mesh", "mesh", "host")  # the same with -b, at the main-path cell
 STAGE1_BLOOM_SIZE = 1.0     # -b's value there
-# 32-bit integer operations a position the functions need, counted from the
-# C source with a 64-bit shift, or, and, add, xor or compare as two: kernel 4
+# 32-bit integer operations a position the functions need, counted for a
+# rolling scan in C with a 64-bit shift, or, and, add, xor or compare as two
+# (the kernels take each k-mer from packed words instead): kernel 4
 # rolls a forward and a reverse k-mer (14), masks both (4), compares them
 # (4), selects and flags (3) and gates (3); kernel 5 rolls an s-mer pair
 # (14), takes its minimum (3) and hashes it (19 64-bit operations, 38), rolls
@@ -216,8 +222,8 @@ STAGE1_BLOOM_SIZE = 1.0     # -b's value there
 # minimum of each side of its window: a sliding minimum of one side's width
 # (prefix and suffix minima in blocks of that width and one to join them,
 # 3 64-bit minimums of 3, whatever the width), one for each distinct width
-# above 1, then a compare with each side (2) and their and (1).  Kernel 5's
-# design compares each of the c - 1 other hashes instead (3 each)
+# above 1, then a compare with each side (2) and their and (1), as kernel
+# 5 does
 KMER_OPS = {"split_kmers": 28, "syncmers": 77, "sliding_min": 9, "side_compare": 2}
 
 
@@ -1412,6 +1418,20 @@ def kmer_edge_cases(k: int, seed: int = EDGE_SEED + 3) -> list[dict]:
     lens_q[3][k // 2] = 3  # one position, its middle base low
     reads65 = [rand(int(n)) for n in rng.integers(100, 1600, 65)]
     tile_lens = (KMER_TILE + k - 1, KMER_TILE + k, 3 * KMER_TILE + k - 1, 12_000)
+    # reads back to back from every byte offset mod 16 (the kernels stage
+    # 16-byte vectors from the boundary below a tile), the last one ending
+    # the buffer at a length that is not a multiple of 16
+    offset_lens = range(k - 1, k + 33)
+    # one position below, at and above a round of one position a thread
+    thread_lens = [n + k - 1 for m in (1, 2) for n in (m * KMER_THREADS - 1, m * KMER_THREADS,
+                                                        m * KMER_THREADS + 1)]
+    # one position below, at and above a tile, with qualities all equal (the
+    # gate off) and equal but for the last base (the gate on, every middle
+    # base below MIN_BQ)
+    tq = KMER_TILE + k - 1
+    last_differs = [q(n, MIN_BQ - 15) for n in (tq, tq + 1)]
+    for a in last_differs:
+        a[-1] = 40
     cases = [
         ("lengths", [rand(n) for n in (0, k - 1, k, k + 1)], lens_q),
         ("palindrome", [pal], [q(len(pal))]),
@@ -1426,6 +1446,10 @@ def kmer_edge_cases(k: int, seed: int = EDGE_SEED + 3) -> list[dict]:
         ("65_reads", reads65, [rq(len(r)) for r in reads65]),
         ("operon_5000", [rand(5000)], [rq(5000)]),
         ("tile_edges", [rand(n) for n in tile_lens], [rq(n) for n in tile_lens]),
+        ("offsets16", [rand(n) for n in offset_lens], [rq(n) for n in offset_lens]),
+        ("thread_edges", [rand(n) for n in thread_lens], [rq(n) for n in thread_lens]),
+        ("tile_quality", [rand(n) for n in (tq - 1, tq, tq, tq + 1, tq + 1)],
+         [rq(tq - 1), q(tq, MIN_BQ - 15), last_differs[0], q(tq + 1, MIN_BQ - 15), last_differs[1]]),
     ]
     return [{"name": n, "reads": r, "quals": qs} for n, r, qs in cases]
 

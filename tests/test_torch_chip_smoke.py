@@ -166,7 +166,13 @@ def test_kmer_edge_cases_cover_the_edges(k):
     masked palindromes (dropped, so fewer valid positions than positions);
     homopolymers; a low middle-base quality, all-equal and absent
     qualities; batches of 1 and 65; a 5,000-bp read; reads of one tile of
-    positions, one more, three tiles and past them."""
+    positions, one more, three tiles and past them; reads that start at
+    every byte offset mod 16, the last ending the buffer off a 16-byte
+    boundary; reads one position each side of one and two rounds of a
+    position a thread; reads one position each side of a tile, their
+    qualities all equal or equal but for the last base."""
+    import numpy as np
+
     from savont_tpu_torch.ops.encode import encode_seq
     from savont_tpu_torch.ops.kmers import split_kmer_mid
 
@@ -188,17 +194,33 @@ def test_kmer_edge_cases_cover_the_edges(k):
     tile = chip_smoke.KMER_TILE
     lens = [len(r) for r in cases["tile_edges"]["reads"]]
     assert lens[:3] == [tile + k - 1, tile + k, 3 * tile + k - 1] and lens[3] > 3 * tile + k
+    # every start offset mod 16, the last read ending the buffer off a
+    # 16-byte boundary
+    lens = [len(r) for r in cases["offsets16"]["reads"]]
+    assert lens == list(range(k - 1, k + 33))
+    assert {int(s) % 16 for s in np.cumsum([0] + lens[:-1])} == set(range(16))
+    assert sum(lens) % 16 != 0 and lens[-1] % 16 != 0
+    threads = chip_smoke.KMER_THREADS
+    assert [len(r) - k + 1 for r in cases["thread_edges"]["reads"]] == [
+        threads - 1, threads, threads + 1, 2 * threads - 1, 2 * threads, 2 * threads + 1]
+    tq = cases["tile_quality"]
+    assert [len(r) - k + 1 for r in tq["reads"]] == [tile - 1, tile, tile, tile + 1, tile + 1]
+    for i in (1, 3):  # all equal, below MIN_BQ: the gate is off
+        assert len(set(tq["quals"][i].tolist())) == 1 and tq["quals"][i][0] < chip_smoke.MIN_BQ
+    for i in (2, 4):  # the same but for the last base: the gate is on
+        a = tq["quals"][i]
+        assert (a[:-1] == tq["quals"][i - 1][:-1]).all() and a[-1] != a[0]
 
 
 def test_kmer_tile_matches_the_kernel_sources():
-    """KMER_TILE is the kTile of both kernel sources (kThreads x kRun)."""
+    """KMER_TILE and KMER_THREADS are the kTile and kThreads of both kernel
+    sources, so that the edge cases straddle the real tile and rounds."""
     import re
 
     for src in ("split_kmers.cu", "syncmers.cu"):
         text = (ROOT / "savont_tpu_torch" / "ops" / "csrc" / src).read_text()
-        threads = int(re.search(r"kThreads = (\d+);", text).group(1))
-        run = int(re.search(r"kRun = (\d+);", text).group(1))
-        assert threads * run == chip_smoke.KMER_TILE
+        assert int(re.search(r"kThreads = (\d+);", text).group(1)) == chip_smoke.KMER_THREADS
+        assert int(re.search(r"kTile = (\d+);", text).group(1)) == chip_smoke.KMER_TILE
 
 
 @pytest.mark.parametrize("name", ["split_kmers", "syncmers"])
