@@ -106,7 +106,27 @@ failure; nothing catches it, so the exit code is non-zero):
                  it, with the stage's seconds by part (COUNT_STATS) and
                  equal tables, and one
                  `asv --stage1-backend mesh` held to DIGESTS, kernel 4
-                 launched by it.
+                 launched by it;
+  8. ranks     - the port over ranks (parallel/distributed.py), the ranks
+                 being this script again with --rank-worker, each into its
+                 own directory; a rank that fails fails the run.  One NCCL
+                 rank through the CLI under SAVONT_COORDINATOR /
+                 _NUM_PROCESSES / _PROCESS_ID on phase 5's reads: DIGESTS,
+                 phase 5's jobs, NCCL all_gather (stage 7) and all_reduce
+                 (stage 4) counted.  Two ranks sharing the card over gloo:
+                 `asv` on phase 5's reads (DIGESTS on each rank, the ranks'
+                 stage-4 and stage-7 jobs adding up to phase 5's, each more
+                 than none, no fallback, the device EM of the two within
+                 1e-6), `sintax` of phase 5's ASVs against phase 6's
+                 database (DIGESTS_CLASSIFICATION's files; the ranks'
+                 references adding up to phase 6's, neither above 60%),
+                 split_kmer_count over the ranks at phase 7's kernel cell
+                 (equal to the one-card count) and sharded_classify_nm of
+                 phase 5's ASVs against the first 1,000 references (equal to
+                 one rank's); with two cards or more, the same over NCCL,
+                 one card a rank.  One `ranks` JSON line gives each run's
+                 walls beside nvidia-smi's name and power limit, the
+                 collectives' calls and bytes and each rank's share.
 The last three lines of stdout are nvidia-smi's name / power limit, the
 kernels JSON, and {"ok": true, "device": {...}}.
 """
@@ -236,6 +256,15 @@ def syncmer_ops(c: int) -> int:
         return KMER_OPS["syncmers"]
     return (KMER_OPS["syncmers"] + KMER_OPS["sliding_min"] * len({w for w in sides if w > 1})
             + KMER_OPS["side_compare"] * len(sides) + len(sides) - 1)
+
+
+# phase 8: ranks (parallel/distributed.py)
+RANKS = 2                  # ranks of the gloo runs
+RANKS_TIMEOUT_S = 300      # a run's ranks are killed past this
+RANKS_CLASSIFY_REFS = 1000  # sharded_classify_nm: the phase-5 ASVs against the first 1,000 references
+EM_RANKS_TOLERANCE = 1e-6  # the device EM of two ranks (index_add_ order on the card)
+# the one-host ranks' collectives go over loopback
+RANK_ENV = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
 
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -1014,7 +1043,8 @@ def main_path(work: Path, rng) -> dict:
     log(f"earlier path (per-job routes): {N_READS_SMALL} reads, {n_small} ASVs all NM=0, outputs "
         f"equal their pinned digests; {host['wall_s']:.2f} s; launches {host['launches']}")
     log(f"  stage seconds {host['stage_s']}; per-job routes {host['per_job_route_s']}")
-    return {"launches": mesh["launches"], "port_s": mesh["wall_s"], "n_asvs": n_asvs}
+    return {"launches": mesh["launches"], "port_s": mesh["wall_s"], "n_asvs": n_asvs,
+            "routes": mesh["routes"]}
 
 
 def write_hard_asvs(db_fasta: Path, out_dir: Path, seed: int = HARD_SEED) -> None:
@@ -1697,6 +1727,299 @@ def stage1_kmers_phase(work: Path, int32_ops_per_s: float) -> dict:
     return {"cell": cell, **stage1_cell(work)}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(work: Path, job: str, world: int, env_of=None) -> list[dict]:
+    """Run `world` ranks of `job` (this script with --rank-worker) together;
+    each writes its result to work/ranks/<job>/out<rank>.json.  The first
+    rank to fail, or the timeout, kills them all and raises with their
+    logs' tails.  Returns the results, rank order, each with the rank's
+    process wall."""
+    import os
+
+    run = work / "ranks" / job
+    run.mkdir(parents=True)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            logs.append(open(run / f"rank{r}.log", "w"))
+            env = {**os.environ, **RANK_ENV, **(env_of(r) if env_of else {})}
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-worker", job, str(r),
+                 str(world), str(work)], cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        walls = [0.0] * world
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > RANKS_TIMEOUT_S:
+                break
+            time.sleep(0.05)
+            for r, p in enumerate(procs):
+                if p.poll() is not None and not walls[r]:
+                    walls[r] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{job}: rank(s) {bad} failed (exit "
+                             f"{[procs[r].returncode for r in bad]}):\n" + "\n".join(
+                                 f"--- rank {r}:\n{(run / f'rank{r}.log').read_text()[-4000:]}"
+                                 for r in bad))
+    outs = []
+    for r in range(world):
+        out = json.loads((run / f"out{r}.json").read_text())
+        out["process_s"] = walls[r] or time.perf_counter() - t0
+        outs.append(out)
+    return outs
+
+
+def rank_worker(job: str, rank: int, world: int, work: Path) -> int:
+    """One rank of phase 8.  "nccl_cli": `asv` through the CLI, which joins
+    the group from SAVONT_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID (NCCL).
+    "gloo" / "nccl": joins with init(), on a card shared by every rank over
+    gloo or one card a rank over NCCL, then runs `asv` and `sintax` through
+    the CLI, each into the rank's own directory, split_kmer_count over the
+    ranks at the kernel cell (held to the one-card count) and
+    sharded_classify_nm."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from savont_tpu_torch import cli
+    from savont_tpu_torch.ops import align_torch, kmers_torch, sintax_torch
+    from savont_tpu_torch.parallel import distributed, mesh
+    from savont_tpu_torch.pipeline import sintax as sintax_mod
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    run = work / "ranks" / job
+    out: dict = {"rank": rank}
+    if job != "nccl_cli":
+        distributed.init(world, rank, f"file://{run}/rendezvous", "cuda",
+                         backend="gloo" if job == "gloo" else "nccl")
+    abund = []  # the device EM's abundances of every stage-7 call
+    real_s7 = mesh.mesh_stage7_tie_break
+
+    def stage7(*a, **k):
+        res = real_s7(*a, **k)
+        abund.append(res[1].tolist())
+        return res
+
+    mesh.mesh_stage7_tie_break = stage7
+    for m in (align_torch, sintax_torch, kmers_torch):
+        m.reset_counters()
+    mesh.reset_route_stats()
+    distributed.reset_collectives()
+    t0 = time.perf_counter()
+    rc = cli.main(["--log-level", "warn", "asv", str(work / "reads.fq.gz"), "-o",
+                   str(run / f"asv{rank}"), "--device", "cuda", "-t", "4"])
+    out["asv_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"asv exited {rc}")
+    out.update(digests=output_digests(run / f"asv{rank}"), routes=mesh.ROUTE_STATS, abund=abund,
+               asv_collectives=dict(distributed.COLLECTIVES),
+               asv_launches=dict(align_torch.LAUNCHES))
+    if job != "nccl_cli":
+        distributed.reset_collectives()
+        sintax_mod.SCORE_STATS["refs"] = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--log-level", "warn", "sintax", "-i", str(work / "mesh"), "-o",
+                       str(run / f"sintax{rank}"), "-d", str(work / "db" / "emu"), "--device",
+                       "cuda"])
+        out["sintax_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"sintax exited {rc}")
+        out.update(sintax_digests={name: hashlib.sha256(
+            (run / f"sintax{rank}" / name).read_bytes()).hexdigest()
+            for name in ("genus_abundance.tsv", "asv_mappings.tsv")},
+            sintax_refs=sintax_mod.SCORE_STATS["refs"],
+            sintax_collectives=dict(distributed.COLLECTIVES))
+        # the multi-device steps no default path takes
+        from savont_tpu_torch.io.fastx import read_fastx, read_fastx_records
+        from savont_tpu_torch.pipeline.stage1_kmers import _batch_encode
+
+        recs = read_fastx_records(str(work / "kmer_cell" / "reads.fq.gz"))
+        codes, quals = _batch_encode([r.seq for r in recs], [r.qual for r in recs])
+        distributed.reset_collectives()
+        t0 = time.perf_counter()
+        km, ct = mesh.split_kmer_count(codes, quals, KMER_KS[0], MIN_BQ, "cuda", group=True)
+        out["count_s"] = time.perf_counter() - t0
+        one_k, one_c = mesh.split_kmer_count(codes, quals, KMER_KS[0], MIN_BQ, "cuda")
+        if not (np.array_equal(km, one_k) and np.array_equal(ct, one_c)):
+            raise AssertionError("split_kmer_count over the ranks differs from the one-card count")
+        out.update(distinct=len(km), count_collectives=dict(distributed.COLLECTIVES))
+        queries = [r.seq for r in read_fastx(str(work / "mesh" / "final_asvs.fasta"))]
+        refs = []
+        for r in read_fastx(str(work / "db" / "emu" / "species_taxid.fasta")):
+            refs.append(r.seq)
+            if len(refs) == RANKS_CLASSIFY_REFS:
+                break
+        distributed.reset_collectives()
+        t0 = time.perf_counter()
+        nm, score = mesh.sharded_classify_nm(queries, refs, OPERON_BAND, "cuda")
+        out["classify_nm_s"] = time.perf_counter() - t0
+        np.savez(run / f"classify{rank}.npz", nm=nm, score=score)
+        out["classify_collectives"] = dict(distributed.COLLECTIVES)
+        distributed.shutdown()
+    out.update(launches=dict(align_torch.LAUNCHES), sintax_launches=dict(sintax_torch.LAUNCHES),
+               kmer_launches=dict(kmers_torch.LAUNCHES),
+               plain_calls={**align_torch.REFERENCE_CALLS, **sintax_torch.REFERENCE_CALLS,
+                            **kmers_torch.REFERENCE_CALLS})
+    (run / f"out{rank}.json").write_text(json.dumps(out))
+    if "jax" in sys.modules or "savont_tpu" in sys.modules:
+        raise AssertionError("a rank imported jax or savont_tpu")
+    return 0
+
+
+def ranks_phase(work: Path, mp: dict, cls: dict) -> dict:
+    """Phase 8: the port over ranks on the card, each run's outputs held to
+    the pinned digests and its shares of the work to the one-rank run's
+    (phases 5 and 6)."""
+    import numpy as np
+    import torch
+
+    from savont_tpu_torch.parallel.mesh import sharded_classify_nm
+
+    def held(tag: str, out: dict) -> None:
+        if out["digests"] != DIGESTS:
+            raise AssertionError(f"{tag}, rank {out['rank']}: asv outputs differ from the pinned "
+                                 f"digests: {out['digests']}")
+        for k in ("sw_forward_nm", "sw_forward_payload", "sw_walk"):
+            if out["asv_launches"][k] <= 0:
+                raise AssertionError(f"{tag}, rank {out['rank']}: kernel {k} was not launched by asv")
+        if any(out["plain_calls"].values()) or any(v["fallbacks"] for v in out["routes"].values()):
+            raise AssertionError(f"{tag}, rank {out['rank']}: plain versions {out['plain_calls']} "
+                                 f"or fallbacks {out['routes']}")
+
+    smi = nvidia_smi_line()
+    runs: dict = {}
+    # 1. one NCCL rank through the CLI, joined from the environment
+    port = free_port()
+    (one,) = start_ranks(work, "nccl_cli", 1, lambda r: {
+        "SAVONT_COORDINATOR": f"127.0.0.1:{port}", "SAVONT_NUM_PROCESSES": "1",
+        "SAVONT_PROCESS_ID": "0"})
+    held("one NCCL rank", one)
+    if {k: one["routes"][k]["jobs"] for k in ("stage4", "stage7")} != {
+            k: mp["routes"][k]["jobs"] for k in ("stage4", "stage7")}:
+        raise AssertionError(f"one NCCL rank ran other jobs than phase 5: {one['routes']}")
+    col = one["asv_collectives"]
+    if not (col.get("all_gather/nccl", {}).get("calls") and col.get("all_reduce/nccl", {}).get("calls")):
+        raise AssertionError(f"one NCCL rank: stage 7's all_gather and stage 4's all_reduce did not "
+                             f"run over NCCL: {col}")
+    runs["nccl_1"] = one
+    log(f"ranks: one NCCL rank through the CLI (SAVONT_COORDINATOR), asv {one['asv_s']:.2f} s "
+        f"(process {one['process_s']:.2f} s), outputs equal DIGESTS; collectives {json.dumps(col)}")
+
+    # 2. two ranks over gloo on the one card; 3. over NCCL, one card a rank
+    worlds = [("gloo", RANKS)] + ([("nccl", torch.cuda.device_count())]
+                                  if torch.cuda.device_count() >= 2 else [])
+    one_rank_jobs = {k: mp["routes"][k]["jobs"] for k in ("stage4", "stage7")}
+    one_rank_refs = cls["sintax"]["sintax"]["refs"]
+    want_sintax = {name: DIGESTS_CLASSIFICATION[f"sintax/{name}"]
+                   for name in ("genus_abundance.tsv", "asv_mappings.tsv")}
+    queries = refs = None
+    for job, world in worlds:
+        outs = start_ranks(work, job, world)
+        for out in outs:
+            held(f"{world} ranks over {job}", out)
+            if out["sintax_digests"] != want_sintax:
+                raise AssertionError(f"{job}, rank {out['rank']}: sintax outputs differ from the "
+                                     f"pinned digests: {out['sintax_digests']}")
+            if out["sintax_launches"]["sintax_scores"] <= 0 or out["kmer_launches"]["split_kmers"] <= 0:
+                raise AssertionError(f"{job}, rank {out['rank']}: kernels 3 / 4 not launched")
+        shares = {k: [o["routes"][k]["jobs"] for o in outs] for k in one_rank_jobs}
+        shares["sintax_refs"] = [o["sintax_refs"] for o in outs]
+        for k, want in {**one_rank_jobs, "sintax_refs": one_rank_refs}.items():
+            if sum(shares[k]) != want or min(shares[k]) <= 0:
+                raise AssertionError(f"{job}: {k} shares {shares[k]} do not add up to the one-rank "
+                                     f"run's {want}, or a rank did none")
+        if max(shares["sintax_refs"]) > 0.6 * one_rank_refs:
+            raise AssertionError(f"{job}: the references are not split evenly: {shares['sintax_refs']}")
+        em_diff = max((abs(a - b) for o in outs[1:] for ca, cb in zip(outs[0]["abund"], o["abund"])
+                       for a, b in zip(ca, cb)), default=0.0)
+        if em_diff > EM_RANKS_TOLERANCE or len({len(o["abund"]) for o in outs}) != 1:
+            raise AssertionError(f"{job}: the ranks' device EM differ by {em_diff}")
+        if queries is None:
+            from savont_tpu_torch.io.fastx import read_fastx
+
+            queries = [r.seq for r in read_fastx(str(work / "mesh" / "final_asvs.fasta"))]
+            refs = [r.seq for _, r in zip(range(RANKS_CLASSIFY_REFS), read_fastx(
+                str(work / "db" / "emu" / "species_taxid.fasta")))]
+            nm1, score1 = sharded_classify_nm(queries, refs, OPERON_BAND, "cuda")
+            if not (nm1 >= 0).any():
+                raise AssertionError("sharded_classify_nm: no pair aligned")
+        for r in range(world):
+            got = np.load(work / "ranks" / job / f"classify{r}.npz")
+            if not (np.array_equal(got["nm"], nm1) and np.array_equal(got["score"], score1)):
+                raise AssertionError(f"{job}, rank {r}: sharded_classify_nm differs from one rank's")
+        runs[f"{job}_{world}"] = outs
+        log(f"ranks: {world} ranks over {job}: asv {[round(o['asv_s'], 2) for o in outs]} s, sintax "
+            f"{[round(o['sintax_s'], 2) for o in outs]} s, every output equal to the pinned digests; "
+            f"shares {json.dumps(shares)} (one rank: {json.dumps(one_rank_jobs)}, {one_rank_refs} "
+            f"references); EM between ranks {em_diff:.3e}; stage-1 count over ranks == one card "
+            f"({outs[0]['distinct']} k-mers); classify NM {len(queries)} x {len(refs)} == one rank")
+    if len(worlds) == 1:
+        log(f"ranks: {torch.cuda.device_count()} card: the NCCL run of one card a rank needs two")
+
+    def summary(o: dict) -> dict:
+        keep = ("asv_s", "sintax_s", "count_s", "classify_nm_s", "process_s", "sintax_refs",
+                "asv_collectives", "sintax_collectives", "count_collectives", "classify_collectives")
+        return {"rank": o["rank"], **{k: o[k] for k in keep if k in o},
+                "jobs": {k: o["routes"][k]["jobs"] for k in ("stage4", "stage7")}}
+
+    line = {"ranks": {"card": smi, "cards": torch.cuda.device_count(),
+                      "note": "ranks sharing one card over gloo check correctness, not speed",
+                      "runs": {k: [summary(o) for o in (v if isinstance(v, list) else [v])]
+                               for k, v in runs.items()}}}
+    log(json.dumps(line))
+    return line
+
+
+def ranks_alone(work: Path) -> dict:
+    """Phase 8 alone, to iterate on it: what it takes from phases 5-7 made
+    afresh in `work` (phase 5's reads through the CLI on the default routes,
+    phase 6's database and its sintax, phase 7's kernel-cell reads), then the
+    phase."""
+    import numpy as np
+
+    from savont_tpu_torch import cli
+    from savont_tpu_torch.db.synth import build_emu_slice
+    from savont_tpu_torch.ops.build import build_kernels
+    from savont_tpu_torch.parallel.mesh import ROUTE_STATS, reset_route_stats
+    from savont_tpu_torch.pipeline import sintax as sintax_mod
+
+    build_kernels()
+    write_reads(work / "reads.fq.gz", work / "templates.fa", main_path_rng())
+    reset_route_stats()
+    if cli.main(["--log-level", "warn", "asv", str(work / "reads.fq.gz"), "-o", str(work / "mesh"),
+                 "--device", "cuda", "-t", "4"]) != 0:
+        raise AssertionError("asv failed")
+    mp = {"routes": {k: dict(v) for k, v in ROUTE_STATS.items()}}
+    build_emu_slice(work / "templates.fa", work / "db", n_refs=DB_REFS, seed=DB_SEED, device="cuda")
+    sintax_mod.SCORE_STATS["refs"] = 0
+    if cli.main(["--log-level", "warn", "sintax", "-i", str(work / "mesh"), "-o",
+                 str(work / "sintax"), "-d", str(work / "db" / "emu"), "--device", "cuda"]) != 0:
+        raise AssertionError("sintax failed")
+    cls = {"sintax": {"sintax": {"refs": sintax_mod.SCORE_STATS["refs"]}}}
+    (work / "kmer_cell").mkdir()
+    write_reads(work / "kmer_cell" / "reads.fq.gz", work / "kmer_cell" / "templates.fa",
+                np.random.default_rng(KMER_SEED), N_KMER_READS)
+    return ranks_phase(work, mp, cls)
+
+
 def main() -> int:
     if not (ROOT / "savont_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -1857,10 +2180,12 @@ def main() -> int:
         cls = classification(work, roof["int32_tops"] * 1e12)
         phase_done("phase 6")
         km = stage1_kmers_phase(work, roof["int32_tops"] * 1e12)
+        phase_done("phase 7")
+        ranks_phase(work, mp, cls)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    phase_done("phase 7")
+    phase_done("phase 8")
     bounds = sw_bounds(res["shape"], roof["int32_tops"] * 1e12)
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -1921,4 +2246,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), Path(sys.argv[5])))
     sys.exit(main())

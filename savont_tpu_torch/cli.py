@@ -6,6 +6,9 @@ The flags mirror the JAX package's CLI (cli.rs), plus `--device` on `asv`,
 PyTorch versions) and the `asv` route flags `--stage4-backend` /
 `--stage7-backend`.  `--profile DIR` writes cProfile's profile.pstats and a
 torch.profiler trace, with CUDA activity when the run's device is the card.
+Under the reference's multi-process variables (parallel/distributed.py) the
+process joins a process group first; `--markdown-help` prints the CLI's
+docs in markdown.
 """
 from __future__ import annotations
 
@@ -143,12 +146,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _print_markdown_help(p: argparse.ArgumentParser) -> None:
+    """--markdown-help: the CLI's docs in markdown, a section a subcommand
+    (cli.rs:175, clap-markdown's hidden flag)."""
+    print(f"# {p.prog}\n\n{p.description or ''}\n")
+    subs = next((a for a in p._actions if isinstance(a, argparse._SubParsersAction)), None)
+    for name, sp in (subs.choices.items() if subs else []):
+        print(f"## `{p.prog} {name}`\n\n```\n{sp.format_help()}```\n")
+
+
 def main(argv: list[str] | None = None) -> int:
-    ns = build_parser().parse_args(argv)
+    parser = build_parser()
+    if "--markdown-help" in (sys.argv[1:] if argv is None else argv):
+        _print_markdown_help(parser)
+        return 0
+    ns = parser.parse_args(argv)
     level = {"warn": "warning"}.get(ns.log_level, ns.log_level)
-    if ns.profile:
-        return _run_profiled(ns, level)
-    return _dispatch(ns, level)
+
+    # a rank of a process group when SAVONT_COORDINATOR / _NUM_PROCESSES /
+    # _PROCESS_ID (or SAVONT_DISTRIBUTED=auto) say so, before any device use
+    from .parallel import distributed
+
+    joined = not distributed.active() and distributed.maybe_init_from_env(
+        getattr(ns, "device", "cpu"))
+    try:
+        if ns.profile:
+            return _run_profiled(ns, level)
+        return _dispatch(ns, level)
+    finally:
+        if joined:
+            distributed.shutdown()
 
 
 def _run_profiled(ns, level: str) -> int:

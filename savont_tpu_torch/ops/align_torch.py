@@ -73,7 +73,14 @@ def events_ms(events: list) -> float:
 @contextmanager
 def timed_launch(device):
     """The launch context of a kernel wrapper: `device` current, and inside a
-    kernel_events() block an event recorded just before and just after."""
+    kernel_events() block an event recorded just before and just after.
+    The inputs must lie on the current card: a rank on another card
+    (parallel/distributed.py) made its own current before it allocated
+    anything, and a tensor elsewhere means it did not."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise RuntimeError(f"kernel inputs on {device}, but the current card is "
+                           f"cuda:{torch.cuda.current_device()}: make the rank's card current "
+                           "(torch.cuda.set_device) before its first allocation")
     with torch.cuda.device(device):
         if _EVENTS is None:
             yield

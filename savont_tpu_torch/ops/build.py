@@ -3,13 +3,16 @@
 Compiled at first use into build/savont_tpu_torch/ at the repo root: one
 nvcc per source, all started together, then one link into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-cached by a hash of the sources and flags.  A missing nvcc or a failed
+cached by a hash of the sources and flags.  The build takes a file lock a
+library, so processes started together (the ranks of a process group, test
+workers) compile it once.  A missing nvcc or a failed
 build raises with nvcc's stderr: there is no fallback to the plain PyTorch
 versions on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -131,9 +134,13 @@ def build_kernels() -> ctypes.CDLL:
             h.update(s.read_bytes())
         so = BUILD_DIR / f"libsavont_kernels_{h.hexdigest()[:16]}.so"
         if not so.exists():
-            t0 = time.perf_counter()
-            log = _compile(srcs, so)
-            BUILD_INFO.update(log=log, seconds=time.perf_counter() - t0)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / f"{so.stem}.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+                if not so.exists():  # else another process built it meanwhile
+                    t0 = time.perf_counter()
+                    log = _compile(srcs, so)
+                    BUILD_INFO.update(log=log, seconds=time.perf_counter() - t0)
         lib = ctypes.CDLL(str(so))
         _bind(lib)
         BUILD_INFO["path"] = str(so)

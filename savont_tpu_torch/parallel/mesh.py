@@ -1,4 +1,4 @@
-"""The all-device routes of stages 1, 4 and 7, on one device.
+"""The all-device routes of stages 1, 4 and 7, on one device or over ranks.
 
 Counterparts of the JAX package's parallel/mesh.py mesh_stage4_pileups and
 mesh_stage7_tie_break (its SAVONT_STAGE4_BACKEND / SAVONT_STAGE7_BACKEND =
@@ -20,16 +20,35 @@ index, and winners are segment reductions over the owners.  Its chunked and
 packed step variants, its corridor smoothing with the host realign, and its
 split of stage 4 by corridor jump exist for the TPU's link latency and its
 kernel's limits; kernel 1 here runs raw corridors at any jump, so each route
-has one path.  A process group over several devices is not part of it yet:
-the reference's psum over the mesh is the identity on one device.
+has one path.
+
+Under a process group (parallel/distributed.py: one rank a card, every rank
+running the same host pipeline) each route runs its kernels on the rank's
+share and one collective makes the result whole on every rank, as the
+reference's shard_map over the mesh does:
+
+  stage 4  a contiguous range of the flat plan's pairs a rank, balanced by
+           payload cells (a pair's strand jobs stay together: its winner is
+           picked among them); all_reduce(SUM) of the integer count
+           buffers, and of the host counts of kernel-2 overflows.  Exact.
+  stage 7  a contiguous range of whole pairs a rank, balanced by cells;
+           all_gather of (score, nm) in plan order, then the tie sets and
+           the EM on the whole arrays on every rank.  The reference psums
+           the EM's numerators over the mesh at every iteration instead.
+           Here the arrays are tiny, a collective an iteration would add a
+           wait to each on top of the one it has (ops/em.py), and an EM run
+           whole on every rank equals one rank's exactly.
 
 When the flat planner declines an input (None: sizes outside its packed key
 widths) a route hands the work to the per-job consumers, which launch the
-same kernels on the same device; ROUTE_STATS counts that.
+same kernels on the same device, on every rank alike; ROUTE_STATS counts
+that.
 
-Stage 1's split-k-mer count (split_kmer_count, the one-device form of the
-reference's sharded_split_kmer_count) runs kernel 4 over the whole batch and
-sorts and counts on the device.
+Stage 1's split-k-mer count (split_kmer_count) runs kernel 4 over the whole
+batch and sorts and counts on the device; with group=True over the ranks
+with the reference's all_to_all by key owner.  sharded_classify_nm gives
+classify's (Q, R) NM matrices, the references split over the ranks.  No
+default path takes either of these two, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,6 +72,8 @@ from ..ops.encode import _RC_TABLE
 from ..ops.host_dp import run_jobs_host
 from ..ops.kmers_torch import BARE, flagged_on_device
 from ..ops.pileup_torch import new_count_buffers, strip_sinks, sw_pileup_counts
+from . import distributed
+from .distributed import all_gather_rows, all_reduce_, all_to_all_rows, my_share
 
 log = logging.getLogger("savont")
 
@@ -167,16 +188,17 @@ def stage7_em(in_tie, row_read, row_asv, n_asvs: int, em_iters: int, conv: float
     return abund, count
 
 
-def _nm_per_pair(n_pairs: int, owner: np.ndarray, score: np.ndarray, nm: np.ndarray) -> np.ndarray:
-    """Per input pair the NM of its best job (highest score, first plan
-    position on ties: align_pairs_nm's rule), -1 where no job aligned."""
+def _winners(n_pairs: int, owner: np.ndarray, score: np.ndarray) -> np.ndarray:
+    """Per input pair the plan index of its best job (highest score, first
+    plan position on ties: align_pairs_nm's rule), -1 where no job
+    aligned."""
     out = np.full(n_pairs, -1, dtype=np.int64)
     ok = np.flatnonzero(score > 0)
     if len(ok):
         sel = ok[np.lexsort((ok, -score[ok].astype(np.int64), owner[ok]))]
         ow = owner[sel]
         first = sel[np.concatenate(([True], ow[1:] != ow[:-1]))]
-        out[owner[first]] = nm[first]
+        out[owner[first]] = first
     return out
 
 
@@ -241,18 +263,24 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
         owner_j = np.flatnonzero(nm_vals >= 0)
         nm = torch.from_numpy(nm_vals[owner_j].astype(np.int32)).to(dev)
         score = torch.ones_like(nm)
+        stats["jobs"] += len(owner_j)  # on every rank: the fallback is not shared
     elif plan == "empty":
         owner_j = np.zeros(0, dtype=np.int64)
         score = nm = torch.zeros(0, dtype=torch.int32, device=dev)
     else:
         owner_j, q_lens_j, band = plan[0], plan[6], plan[13]
         dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
-        out = torch.empty((len(owner_j), 4), dtype=torch.int32, device=dev)
-        for sel in length_chunks_lens(q_lens_j, band, payload=False):
+        # this rank's jobs: a contiguous range of whole pairs, balanced by
+        # cells (all of them without a process group)
+        lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
+        out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
+        for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
             sel_t = torch.from_numpy(sel).to(dev)
-            out[sel_t] = sw_forward(*plan_tensors(dp, sel_t), band)
-        score, nm = out[:, 0].contiguous(), out[:, 3].contiguous()
-    stats["jobs"] += len(owner_j)
+            out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
+        # every rank's (score, nm) in plan order
+        out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
+        score, nm = out[:, 0].contiguous(), out[:, 1].contiguous()
+        stats["jobs"] += hi - lo
 
     row_read = torch.from_numpy(qi[owner_j]).to(dev)
     row_asv = torch.from_numpy(ca[owner_j]).to(dev)
@@ -263,7 +291,8 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
 
     if nm_vals is None:
         fetched = torch.stack([score, nm]).cpu().numpy()  # one fetch
-        nm_vals = _nm_per_pair(len(qi), owner_j, fetched[0], fetched[1])
+        win = _winners(len(qi), owner_j, fetched[0])
+        nm_vals = np.where(win >= 0, fetched[1][win], -1).astype(np.int64)
     return nm_vals, abund.cpu().numpy(), count
 
 
@@ -348,7 +377,11 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
 
     if plan != "empty":
         owner_j, st_j, tid_j, q_lens_j, band = plan[0], plan[2], plan[3], plan[6], plan[13]
-        stats["jobs"] += len(owner_j)
+        # this rank's jobs: a contiguous range of whole pairs (a pair's
+        # winner is picked across its strand jobs in one launch), balanced
+        # by payload cells; all of them without a process group
+        lo_j, hi_j, _ = my_share(q_lens_j * band, group=owner_j)
+        stats["jobs"] += hi_j - lo_j
         dp = plan_to_device(plan, *_build_target_pool(tgt_pool_bytes, ext=True), dev)
 
         # per-pair pools: the read's bytes, quality levels and clamped
@@ -373,7 +406,9 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
 
         acc = new_count_buffers(total_L, NQ, use_hp, dev)
         Lt = dp["t_pool"].shape[1]
-        for sel in length_chunks_lens(q_lens_j, band, payload=True, group=owner_j):
+        for sel in length_chunks_lens(q_lens_j[lo_j:hi_j], band, payload=True,
+                                      group=owner_j[lo_j:hi_j]):
+            sel = sel + lo_j
             sel_t = torch.from_numpy(sel).to(dev)
             lens = dp["q_lens"][sel_t]
             Lq = int(lens.max())
@@ -391,7 +426,17 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
                 _count_on_host(plan, int(sel[row]), band, payload, consensuses, roff, NQ, counts)
                 stats["overflow"] += 1
         LAUNCHES["walk_overflow"] += stats["overflow"]
-        for k, v in strip_sinks(acc).items():  # the one fetch
+        acc = strip_sinks(acc)
+        if distributed.active():
+            # every rank's counts, device buffers and host overflow counts
+            # alike: integer sums, exact in any order
+            for v in acc.values():
+                all_reduce_(v, "sum")
+            host = torch.from_numpy(np.concatenate(list(counts.values())))
+            all_reduce_(host, "sum")
+            ends = np.cumsum([len(v) for v in counts.values()])
+            counts = dict(zip(counts, np.split(host.numpy(), ends[:-1])))
+        for k, v in acc.items():  # the one fetch
             counts[k] += v.cpu().numpy()
 
     pms = []
@@ -434,8 +479,28 @@ def count_flagged(flagged: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return kmers, counts
 
 
+def _to_owners(flagged: torch.Tensor) -> torch.Tensor:
+    """Send each flagged key to the rank that owns it, the low 32 bits of
+    its bare k-mer modulo the world (the reference's klo % n_dev), with one
+    all_to_all_rows; returns the keys this rank owns."""
+    owner = (flagged & 0xFFFFFFFF) % distributed.world()
+    order = torch.argsort(owner, stable=True)
+    send = torch.bincount(owner, minlength=distributed.world())
+    return all_to_all_rows(flagged[order], send.tolist())[0]
+
+
+def _gather_tables(kmers: torch.Tensor, counts: torch.Tensor):
+    """The owners' disjoint tables, gathered on every rank and merged in key
+    order."""
+    n = torch.tensor([kmers.shape[0]], dtype=torch.int64, device=kmers.device)
+    sizes = all_gather_rows(n, [1] * distributed.world()).tolist()
+    kmers, counts = all_gather_rows(kmers, sizes), all_gather_rows(counts, sizes)
+    order = torch.argsort(kmers)
+    return kmers[order], counts[order]
+
+
 def split_kmer_count(code_list, phred_list, k: int, min_bq: int, device,
-                     stats: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+                     stats: dict | None = None, group: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Stage 1's strand-split count of the flagged canonical split k-mers of
     every read, on `device`: (bare k-mers ascending, uint64; counts (n, 2)
     uint32 indexed by the strand flag), what ops.kmers.count_flagged_kmers
@@ -444,18 +509,28 @@ def split_kmer_count(code_list, phred_list, k: int, min_bq: int, device,
     The reads are uploaded once; kernel 4 extracts every position's key
     and validity, the valid keys are compacted on the device
     (flagged_on_device), sorted and counted there (count_flagged), and the
-    table is fetched once.  The
+    table is fetched once.
+
+    With `group`, the count runs over the process group's ranks, as the
     reference's sharded_split_kmer_count (savont_tpu/parallel/mesh.py:1333)
-    also routes each key to the device that owns its slice of the key space
-    with one all_to_all before the sort; on one device that step is the
-    identity and is left to the multi-device route.  With `stats`, the
+    runs over its mesh: each rank extracts a contiguous range of the reads
+    (balanced by bases), sends every key to its owner with one all_to_all
+    (_to_owners), counts what it owns, and the owners' disjoint tables are
+    gathered and merged on every rank.  No default path takes it, as none
+    takes the reference's.  With `stats`, the
     parts' seconds are added to upload_s, kernel4_s, compact_s,
-    sort_count_s and fetch_s, and the sizes to positions, flagged and
-    distinct."""
+    sort_count_s and fetch_s, and the sizes to positions, flagged (this
+    rank's) and distinct."""
     dev = resolve_device(device)
     clock = PartClock(dev)
+    if group:
+        lo, hi, _ = my_share(np.fromiter((len(c) for c in code_list), np.int64, len(code_list)))
+        code_list = code_list[lo:hi]
+        phred_list = phred_list[lo:hi] if phred_list is not None else None
     batch, flagged, _ = flagged_on_device(code_list, phred_list, k, min_bq, dev, clock)
-    kmers, counts = count_flagged(flagged)
+    kmers, counts = count_flagged(_to_owners(flagged) if group else flagged)
+    if group:
+        kmers, counts = _gather_tables(kmers, counts)
     clock.mark("sort_count_s")
     out = kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().view(np.uint32)
     clock.mark("fetch_s")
@@ -465,3 +540,46 @@ def split_kmer_count(code_list, phred_list, k: int, min_bq: int, device,
         stats["flagged"] += flagged.shape[0]
         stats["distinct"] += len(out[0])
     return out
+
+
+# ── classify's (Q, R) NM matrices over ranks ────────────────────────────
+
+
+def sharded_classify_nm(queries: list[bytes], refs: list[bytes], band: int = 128,
+                        device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """The reference's sharded_classify_nm (savont_tpu/parallel/mesh.py:917):
+    every query against every reference, the references split over the
+    process group's ranks (contiguous; all of them without a group).  Each
+    rank plans its (query, reference) pairs with the flat planner and runs
+    every job through kernel 1 (NM mode) on raw corridors, as classify's
+    route does (ops/align_batch.classify_nm_slabs); a pair's value is its
+    best job's (highest score, the earliest job on ties).  The rank's
+    columns are gathered along R.
+
+    Returns (nm, score), (Q, R) int32 each: -1 / 0 where a pair did not
+    align.  Held to align_pairs_nm, not to the reference's matrices, which
+    come from smoothed corridors.  Only tests call it, as in the
+    reference."""
+    from ..ops.align_batch import classify_nm_launches, classify_nm_slabs
+
+    dev = resolve_device(device)
+    n_q = len(queries)
+    r0, r1, sizes = my_share(np.ones(len(refs)))
+    mine = r1 - r0
+    # pair k is (query k // mine, reference r0 + k % mine)
+    qi = np.repeat(np.arange(n_q, dtype=np.int64), mine)
+    ti = np.tile(np.arange(r0, r1, dtype=np.int64), n_q)
+    cols = np.zeros((mine * n_q, 2), dtype=np.int32)
+    cols[:, 0] = -1
+    for s, plan, dp in classify_nm_slabs(queries, refs, qi, ti, band, dev):
+        out = torch.empty((len(plan[0]), 4), dtype=torch.int32, device=dev)
+        for sel_t, tensors in classify_nm_launches(plan, dp, band, dev):
+            out[sel_t] = sw_forward(*tensors, band)
+        out = out.cpu().numpy()  # one fetch a slab
+        win = _winners(len(qi) - s, plan[0], out[:, 0])
+        ok = np.flatnonzero(win >= 0)
+        cols[s + ok] = out[win[ok]][:, [3, 0]]
+    # (mine, Q, 2) for this rank's references; every rank's, along R
+    local = torch.from_numpy(cols.reshape(n_q, mine, 2).transpose(1, 0, 2).copy()).to(dev)
+    full = all_gather_rows(local, sizes).cpu().numpy().transpose(1, 0, 2)
+    return np.ascontiguousarray(full[:, :, 0]), np.ascontiguousarray(full[:, :, 1])

@@ -2,8 +2,10 @@
 (sintax.rs).  Phase 2, the scores of every (ASV, iteration) pair against
 every reference, runs on the chosen device through kernel 3
 (ops/sintax_torch.py): the references stream in chunks of rows, the keys
-are max'ed on the device and fetched once.  _host_scores, the host stream
-of the reference, is kept as the test oracle."""
+are max'ed on the device and fetched once; over the ranks of a process
+group (parallel/distributed.py) each rank takes its share of the references
+and one all_reduce joins the keys.  _host_scores, the host stream of the
+reference, is kept as the test oracle."""
 from __future__ import annotations
 
 import logging
@@ -18,6 +20,7 @@ from ..constants import ASV_FILE, SINTAX_K, SINTAX_SUBSAMPLE
 from ..db import taxonomy as tax
 from ..device import resolve_device
 from ..io.fastx import read_fastx
+from ..parallel import distributed
 from ..ops.align_torch import events_ms, kernel_events
 from ..ops.sintax_torch import (
     index_on, keys_int64, query_index, ragged_rows, sintax_scores_rows,
@@ -26,7 +29,9 @@ from ..ops.sintax_torch import (
 log = logging.getLogger("savont")
 
 CHUNK_ROWS = 4096  # references per launch of kernel 3
-# the device scores' counters: calls, kept references, wall seconds inside
+ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
+# the device scores' counters: calls, kept references scored on this rank
+# (those with k-mers), wall seconds inside
 # and of them in the host's k-mer extraction of the references (the FASTA
 # stream, extract_kmers, np.unique), and device
 # milliseconds of the launches (CUDA events read after the one fetch; 0.0 on
@@ -147,9 +152,12 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
     """Phase 2 on `device`: the query index is built once and uploaded
     once; the references stream once, in chunks of CHUNK_ROWS rows of their
     sorted unique k-mers (back to back, no padding), through kernel 3, which
-    max's each pair's packed key (score, earliest kept reference) into one
-    accumulator on the device; one fetch at the end.  Equal to the host stream (_host_scores) and to
-    the JAX package's mesh step, bit for bit."""
+    max's each pair's packed key (score, earliest reference by record
+    index) into one accumulator on the device; one fetch at the end.  Under
+    a process group each rank extracts and scores every world-th record and
+    the ranks' keys are max'ed with one all_reduce before the fetch (the
+    reference's pmax over its mesh).  Equal to the host stream
+    (_host_scores) and to the JAX package's mesh step, bit for bit."""
     t_start = time.perf_counter()
     stats = SCORE_STATS
     stats["calls"] += 1
@@ -163,49 +171,61 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
 def _scores_on(subs, db, n_pairs, dev, stats):
     index = index_on(*query_index(subs, QUERY_SENTINEL), n_pairs, dev)
     acc = torch.zeros(n_pairs, dtype=torch.int32, device=dev)
-    entries: list[tax.TaxonomyEntry] = []
+    # every kept reference's taxonomy entry, by its record index, which is
+    # its ordinal in the keys: the same on every rank, and in stream order,
+    # so the earliest reference still wins a tie
+    entries: dict[int, tax.TaxonomyEntry] = {}
     pend_k: list[np.ndarray] = []
-    n_refs = 0
+    pend_r: list[int] = []
+    n_ranks, my_rank = distributed.world(), distributed.rank()
 
     def flush():
         if not pend_k:
             return
         kmers, row_off = ragged_rows(pend_k)
-        base = len(entries) - len(pend_k)
-        ridx = np.arange(base, len(entries), dtype=np.int32)
+        ridx = np.asarray(pend_r, dtype=np.int32)
         sintax_scores_rows(index, torch.from_numpy(kmers).to(dev), torch.from_numpy(row_off).to(dev),
                            torch.from_numpy(ridx).to(dev), acc)
+        stats["refs"] += len(pend_k)
         pend_k.clear()
+        pend_r.clear()
 
     t_host = time.perf_counter()
-    for rec in read_fastx(str(db.fasta_path)):
-        n_refs += 1
+    for n, rec in enumerate(read_fastx(str(db.fasta_path))):
+        if n > ORDINAL_MAX:
+            raise ValueError(f"sintax: the database holds more than {ORDINAL_MAX + 1} records, "
+                             "the most a score key's ordinal field can tell apart")
         key = db.extract_key(rec.id)
         if key is None:
             continue
         entry = db.taxonomy.get(key)
         if entry is None:
             continue
-        ref_kmers = np.unique(extract_kmers(rec.seq.upper()))
-        if len(ref_kmers) == 0:
-            continue
-        entries.append(entry)
-        pend_k.append(ref_kmers)
-        if len(pend_k) == CHUNK_ROWS:
-            stats["kmers_s"] += time.perf_counter() - t_host
-            flush()
-            t_host = time.perf_counter()
-        if n_refs % 10000 == 0:
-            log.info("Processed %d reference sequences...", n_refs)
+        entries[n] = entry
+        # the rank's references: every n_ranks-th record (all of them
+        # without a process group)
+        if n % n_ranks == my_rank:
+            ref_kmers = np.unique(extract_kmers(rec.seq.upper()))
+            if len(ref_kmers):
+                pend_k.append(ref_kmers)
+                pend_r.append(n)
+                if len(pend_k) == CHUNK_ROWS:
+                    stats["kmers_s"] += time.perf_counter() - t_host
+                    flush()
+                    t_host = time.perf_counter()
+        if (n + 1) % 10000 == 0:
+            log.info("Processed %d reference sequences...", n + 1)
     stats["kmers_s"] += time.perf_counter() - t_host
     flush()
-    stats["refs"] += len(entries)
 
-    best_key = keys_int64(acc).cpu().numpy()  # the one fetch
+    # the keys are unsigned 32-bit patterns (a score of 32 sets bit 31), so
+    # the ranks' maximum is taken on them widened to int64
+    best_key = distributed.all_reduce_(keys_int64(acc), "max").cpu().numpy()  # the one fetch
     best_scores = (best_key >> 26).astype(np.int32)
-    ordinal = 0x3FFFFFF - (best_key & 0x3FFFFFF)
+    ordinal = ORDINAL_MAX - (best_key & ORDINAL_MAX)
     best_tax = [entries[int(o)] if k > 0 else None for k, o in zip(best_key, ordinal)]
-    log.info("SINTAX scores on %s: %d kept refs", dev, len(entries))
+    log.info("SINTAX scores on %s: %d of %d kept refs on this rank", dev, stats["refs"],
+             len(entries))
     return best_scores, best_tax
 
 

@@ -106,6 +106,24 @@ def test_cli_help_and_unported_subcommands():
         assert r.returncode == 0 and "not yet ported" not in r.stdout + r.stderr, r.stderr
 
 
+def test_cli_markdown_help(capsys):
+    """--markdown-help (the JAX package's hidden flag) returns 0 and prints
+    a markdown section for every subcommand, as the JAX package's does."""
+    from savont_tpu.cli import main as jax_main
+    from savont_tpu_torch.cli import main
+
+    assert main(["--markdown-help"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("# savont-tpu-torch")
+    for name in ("asv", "classify", "sintax", "download", "export"):
+        assert f"## `savont-tpu-torch {name}`" in out
+    assert "--device" in out and "--stage4-backend" in out
+    assert jax_main(["--markdown-help"]) in (0, None)
+    want = capsys.readouterr().out
+    assert [ln.split()[-1] for ln in out.splitlines() if ln.startswith("## ")] == \
+        [ln.split()[-1] for ln in want.splitlines() if ln.startswith("## ")]
+
+
 def test_cli_profile_not_ported(tmp_path):
     """--profile DIR writes cProfile's profile.pstats and a torch.profiler
     trace around a subcommand (here sintax on the CPU)."""
