@@ -107,6 +107,25 @@ failure; nothing catches it, so the exit code is non-zero):
                  equal tables, and one
                  `asv --stage1-backend mesh` held to DIGESTS, kernel 4
                  launched by it;
+  operon       - the rRNA-operon preset (--rrna-operon: reads of 3,500 to
+                 5,000 bp, band 128).  Kernels 1 (both modes) and 2 at
+                 operon shapes: 512 reads of 16 random 4,400-bp templates
+                 through the planner at band 128 (ops_max about 9,000),
+                 against their plain versions on the card at tolerance 0
+                 and the job routes against the host oracle, each timed as
+                 20 queued launches and one alone, with its bound and
+                 kernel 2's pairs a block.  Then a seed-pinned 10,000-read
+                 operon sample (10 templates of 4,400 bp, phase 5's error
+                 model) through `asv --rrna-operon` on the card, once
+                 untimed, once timed, once with --stage1-backend mesh: each
+                 held to DIGESTS_OPERON (the JAX package's host run), NM=0,
+                 kernels 1 (both modes) and 2 launched (and kernel 4 by the
+                 mesh run), no plain version, no fallback, stage 7 carrying
+                 at least 5,000 jobs, both device routes every job their
+                 planner made, the device EM within 1e-4 of the host EM;
+                 each run's wall, stage seconds, route seconds beside
+                 kernel_ms, launch cut, overflow pairs and kernel 2's pairs
+                 a block printed, with nvidia-smi's name and power limit;
   8. ranks     - the port over ranks (parallel/distributed.py), the ranks
                  being this script again with --rank-worker, each into its
                  own directory; a rank that fails fails the run.  One NCCL
@@ -258,6 +277,26 @@ def syncmer_ops(c: int) -> int:
             + KMER_OPS["side_compare"] * len(sides) + len(sides) - 1)
 
 
+# phase "operon": the rRNA-operon preset (--rrna-operon: reads of 3,500 to
+# 5,000 bp, DP band 128) on one ONT 16S-ITS-23S operon barcode's worth of reads
+N_READS_OPERON = 10_000
+OPERON_TEMPLATE_LEN = 4400
+OPERON_SEED = SEED + 8          # the sample's own generator
+OPERON_KERNEL_SEED = SEED + 9   # the jobs of kernels 1 and 2 at operon shapes
+OPERON_KERNEL_TEMPLATES, OPERON_KERNEL_READS = 16, 32  # 512 reads through the planner
+# sha256 of the outputs of the JAX package's host run_cluster(threads=4,
+# rrna_operon=True) on write_reads' operon sample (operon_sample)
+DIGESTS_OPERON = {
+    "final_asvs.fasta": "a5caabf08d94c0017423f9b6d59ad174e50280392ce1b32481882646b7bf547f",
+    "feature-table.tsv": "a3d9ec279c7017d8a35a8810527a2723fc41ed34a1556e771a419f55abb40d7b",
+    "temp/read_to_asv_mappings.tsv": "91054c6e10d25896a61944083abaa9e4bd543b1d0673c11964e8e2e4559eb3a6",
+}
+# kernel 2's shared memory (ops/csrc/sw_walk.cu: kWarps, kStages, kMaxRows,
+# kWindowBytes, kMaxShared)
+WALK_WARPS, WALK_STAGES, WALK_MAX_ROWS, WALK_WINDOW_BYTES = 4, 3, 32, 4096
+WALK_MAX_SHARED = 227 * 1024
+
+
 # phase 8: ranks (parallel/distributed.py)
 RANKS = 2                  # ranks of the gloo runs
 RANKS_TIMEOUT_S = 300      # a run's ranks are killed past this
@@ -342,8 +381,10 @@ def mutate(rng, seq: bytes, kind: int) -> bytes:
     return s
 
 
-def make_pairs(rng, n_templates: int, reads_per: int) -> list[tuple[bytes, list[bytes]]]:
-    """n_templates random templates, each with reads_per mutated reads."""
+def make_pairs(rng, n_templates: int, reads_per: int,
+               template_len: int = TEMPLATE_LEN) -> list[tuple[bytes, list[bytes]]]:
+    """n_templates random templates of template_len bases, each with
+    reads_per mutated reads."""
     import numpy as np
 
     from savont_tpu_torch.ops.encode import revcomp_bytes
@@ -351,7 +392,7 @@ def make_pairs(rng, n_templates: int, reads_per: int) -> list[tuple[bytes, list[
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     out = []
     for _ in range(n_templates):
-        t = rng.choice(bases, TEMPLATE_LEN).tobytes()
+        t = rng.choice(bases, template_len).tobytes()
         reads = []
         for k in range(reads_per):
             q = mutate(rng, t, k % 4)
@@ -747,11 +788,16 @@ def max_abs_diff(pairs) -> int:
     return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
 
 
-def check_kernels(jobs, band: int, time_plain: bool) -> dict:
+def check_kernels(jobs, band: int, time_plain: bool, queued: bool = False) -> dict:
     """Kernels 1 and 2 against their plain versions on the card, and the
     port's job routes against the port's host oracle.  Returns per kernel
     the error and its time, with `time_plain` the plain version's time too,
-    and the shapes the bounds need."""
+    and the shapes the bounds need.  Kernel 1's time is the better of two
+    means of 5 launches, or with `queued` the mean of QUEUED_RUNS launches
+    queued back to back with one launch alone beside it (single_ms), as
+    kernel 2's always is; with `queued` the plain version is timed once,
+    before the kernel, not in turns around it (at operon shapes one call
+    takes seconds)."""
     import numpy as np
     import torch
 
@@ -808,12 +854,14 @@ def check_kernels(jobs, band: int, time_plain: bool) -> dict:
         # tenth of kernel 1's time, as the mean of QUEUED_RUNS launches
         # queued back to back
         p1 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
-        if name == "sw_walk":
+        if name == "sw_walk" or queued:
             k1, k2 = (launch_ms(kern, reps=2, runs=QUEUED_RUNS) for _ in range(2))
         else:
             k1, k2 = cuda_ms(kern, 5), cuda_ms(kern, 5)
-        p2 = cuda_ms(plain, 1, warm_up=False) if time_plain else None
+        p2 = cuda_ms(plain, 1, warm_up=False) if time_plain and not queued else p1
         res[name].update(ms=min(k1, k2))
+        if queued and name != "sw_walk":
+            res[name].update(single_ms=launch_ms(kern))
         line = f"  {name}: kernel {min(k1, k2):.3f} ms ({1e3 * min(k1, k2) / B:.3f} us/pair)"
         if time_plain:
             res[name].update(plain_ms=min(p1, p2))
@@ -872,6 +920,27 @@ def check_kernels(jobs, band: int, time_plain: bool) -> dict:
     return res
 
 
+def walk_warp_bytes(band: int, ops_max: int, maxrun: int = MAXRUN) -> int:
+    """Kernel 2's shared memory for one pair's warp (sw_walk.cu make_layout):
+    WALK_STAGES payload windows of up to WALK_MAX_ROWS rows and
+    WALK_WINDOW_BYTES bytes, each with its lo words, ops_max op bytes and
+    maxrun run words, every part rounded up to 16 bytes."""
+    rows = min(max(WALK_WINDOW_BYTES // band, 1), WALK_MAX_ROWS)
+    win_bytes = ((rows * band + 15) & ~15) + 16
+    lo_words = (rows + 1 + 3) & ~3
+    return (WALK_STAGES * (win_bytes + 4 * lo_words) + ((ops_max + 15) & ~15)
+            + ((4 * maxrun + 15) & ~15))
+
+
+def walk_warps_per_block(warp_bytes: int) -> int:
+    """Kernel 2's pairs a block: WALK_WARPS, halved while the block's
+    shared memory exceeds WALK_MAX_SHARED (sw_walk_launch)."""
+    warps = WALK_WARPS
+    while warps > 1 and warps * warp_bytes > WALK_MAX_SHARED:
+        warps //= 2
+    return warps
+
+
 def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
     """Least time for kernels 1 and 2 at these shapes: the larger of the
     integer operations over the measured int32 rate and the bytes (each
@@ -902,10 +971,12 @@ def sw_bounds(shape: dict, int32_ops_per_s: float) -> dict:
     return out
 
 
-def write_reads(path: Path, tpl_path: Path, rng, n_reads: int = N_READS) -> None:
-    """n_reads ONT-like reads from 10 templates (5 random, 5 variants with 4-6
-    SNPs): 1.5% substitutions each, 30% with a 1-2 bp deletion, 10% with a
-    2-6 bp deletion, 2% with a 50 bp deletion, half reverse-complemented."""
+def write_reads(path: Path, tpl_path: Path, rng, n_reads: int = N_READS,
+                template_len: int = TEMPLATE_LEN) -> None:
+    """n_reads ONT-like reads from 10 templates of template_len bases (5
+    random, 5 variants with 4-6 SNPs): 1.5% substitutions each, 30% with a
+    1-2 bp deletion, 10% with a 2-6 bp deletion, 2% with a 50 bp deletion,
+    half reverse-complemented."""
     import numpy as np
 
     from savont_tpu_torch.ops.encode import revcomp_bytes
@@ -913,10 +984,10 @@ def write_reads(path: Path, tpl_path: Path, rng, n_reads: int = N_READS) -> None
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     templates = []
     for _ in range(5):
-        templates.append(rng.choice(bases, TEMPLATE_LEN).tobytes())
+        templates.append(rng.choice(bases, template_len).tobytes())
     for base in list(templates):
         v = np.frombuffer(base, dtype=np.uint8).copy()
-        pos = rng.choice(np.arange(60, TEMPLATE_LEN - 60), int(rng.integers(4, 7)), replace=False)
+        pos = rng.choice(np.arange(60, template_len - 60), int(rng.integers(4, 7)), replace=False)
         v[pos] = bases[(np.searchsorted(bases, v[pos]) + rng.integers(1, 4, len(pos))) % 4]
         templates.append(v.tobytes())
     with open(tpl_path, "w") as f:
@@ -950,6 +1021,15 @@ def main_path_rng():
     return rng
 
 
+def operon_sample(fq: Path, tpl: Path) -> None:
+    """The operon phase's sample: N_READS_OPERON reads of write_reads' error
+    model from 10 templates of OPERON_TEMPLATE_LEN bases, from its own
+    generator (no earlier sample draws from it)."""
+    import numpy as np
+
+    write_reads(fq, tpl, np.random.default_rng(OPERON_SEED), N_READS_OPERON, OPERON_TEMPLATE_LEN)
+
+
 def output_digests(out_dir: Path) -> dict[str, str]:
     return {rel: hashlib.sha256((out_dir / rel).read_bytes()).hexdigest() for rel in DIGESTS}
 
@@ -963,52 +1043,72 @@ def small_sample_rng():
     return rng
 
 
-def main_path(work: Path, rng) -> dict:
+def cli_asv(out_dir: Path, fq: Path, *args: str) -> dict:
+    """One `asv` through the CLI on the card into out_dir, with every count
+    set to 0 just before it; what it counted, read just after: launches and
+    plain-version calls of kernels 1, 2 and 4, the device routes' stats, the
+    per-job routes' seconds and the stage seconds."""
     from savont_tpu_torch import cli
-    from savont_tpu_torch.ops import align_batch
-    from savont_tpu_torch.ops.align_torch import LAUNCHES, REFERENCE_CALLS, reset_counters
+    from savont_tpu_torch.ops import align_batch, align_torch
+    from savont_tpu_torch.ops import kmers_torch as kt
     from savont_tpu_torch.parallel.mesh import ROUTE_STATS, reset_route_stats
+    from savont_tpu_torch.pipeline import stage1_kmers as s1
     from savont_tpu_torch.pipeline.asv import STAGE_SECONDS
+
+    align_torch.reset_counters()
+    kt.reset_counters()
+    reset_route_stats()
+    s1.reset_count_stats()
+    for k in align_batch.ROUTE_SECONDS:
+        align_batch.ROUTE_SECONDS[k] = 0.0
+    t0 = time.perf_counter()
+    rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out_dir),
+                   "--device", "cuda", "-t", "4", *args])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"savont_tpu_torch asv {' '.join(args)} exited {rc}")
+    return {"wall_s": wall, "launches": {**align_torch.LAUNCHES, **kt.LAUNCHES},
+            "plain_calls": {**align_torch.REFERENCE_CALLS, **kt.REFERENCE_CALLS},
+            "routes": {k: dict(v) for k, v in ROUTE_STATS.items()},
+            "per_job_route_s": dict(align_batch.ROUTE_SECONDS),
+            "stage_s": {k: round(v, 3) for k, v in STAGE_SECONDS.items()},
+            "stage1_count": {k: v for k, v in s1.COUNT_STATS.items() if v}}
+
+
+SW_KERNELS = ("sw_forward_nm", "sw_forward_payload", "sw_walk")
+
+
+def held(out_dir: Path, tpl: Path, digests: dict, r: dict, kernels=SW_KERNELS) -> int:
+    """cli_asv's run r into out_dir held to its pinned digests, to NM=0 of
+    every ASV against the templates, to a launch of each of `kernels` and
+    to no call of a plain version.  Returns the number of ASVs."""
     from savont_tpu_torch.validate import validate_asvs
 
-    def run(fq: Path, tag: str, *routes: str) -> dict:
-        """One CLI run with every count set to 0 just before it; what it
-        counted, read just after."""
-        reset_counters()
-        reset_route_stats()
-        for k in align_batch.ROUTE_SECONDS:
-            align_batch.ROUTE_SECONDS[k] = 0.0
-        t0 = time.perf_counter()
-        rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(work / tag),
-                       "--device", "cuda", "-t", "4", *routes])
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"savont_tpu_torch asv exited {rc}")
-        return {"wall_s": wall, "launches": dict(LAUNCHES), "plain_calls": dict(REFERENCE_CALLS),
-                "routes": {k: dict(v) for k, v in ROUTE_STATS.items()},
-                "per_job_route_s": dict(align_batch.ROUTE_SECONDS),
-                "stage_s": {k: round(v, 3) for k, v in STAGE_SECONDS.items()}}
+    tag = out_dir.name
+    got = output_digests(out_dir)
+    if got != digests:
+        raise AssertionError(f"{tag}: outputs differ from the pinned digests of the host run: {got}")
+    val = validate_asvs(str(out_dir / "final_asvs.fasta"), str(tpl))
+    if not val or any(v.nm != 0 for v in val):
+        raise AssertionError(f"{tag}: ASVs not all NM=0 against the templates: {val}")
+    for k in kernels:
+        if r["launches"][k] <= 0:
+            raise AssertionError(f"{tag}: kernel {k} was not launched: {r['launches']}")
+    if any(r["plain_calls"].values()):
+        raise AssertionError(f"{tag}: plain versions ran during the card run: {r['plain_calls']}")
+    return len(val)
 
-    def held(tag: str, tpl: Path, digests: dict, r: dict) -> int:
-        got = output_digests(work / tag)
-        if got != digests:
-            raise AssertionError(f"{tag}: outputs differ from the pinned digests of the host run: {got}")
-        val = validate_asvs(str(work / tag / "final_asvs.fasta"), str(tpl))
-        if not val or any(v.nm != 0 for v in val):
-            raise AssertionError(f"{tag}: ASVs not all NM=0 against the templates: {val}")
-        for k in ("sw_forward_nm", "sw_forward_payload", "sw_walk"):
-            if r["launches"][k] <= 0:
-                raise AssertionError(f"{tag}: kernel {k} was not launched: {r['launches']}")
-        if any(r["plain_calls"].values()):
-            raise AssertionError(f"{tag}: plain versions ran during the card run: {r['plain_calls']}")
-        return len(val)
+
+def main_path(work: Path, rng) -> dict:
+    def run(fq: Path, tag: str, *routes: str) -> dict:
+        return cli_asv(work / tag, fq, *routes)
 
     # the default routes: the device routes of stages 4 and 7, at full width
     fq, tpl = work / "reads.fq.gz", work / "templates.fa"
     write_reads(fq, tpl, rng)
     warm = run(fq, "warmup")  # first run in the process: untimed
     mesh = run(fq, "mesh")
-    n_asvs = held("mesh", tpl, DIGESTS, mesh)
+    n_asvs = held(work / "mesh", tpl, DIGESTS, mesh)
     s4, s7 = mesh["routes"]["stage4"], mesh["routes"]["stage7"]
     # stage 4 piles up at most 250 reads per consensus, stage 7 aligns every
     # read to its candidate ASVs
@@ -1037,7 +1137,7 @@ def main_path(work: Path, rng) -> dict:
     fq_s.parent.mkdir()
     write_reads(fq_s, tpl_s, rng, N_READS_SMALL)
     host = run(fq_s, "host", "--stage4-backend", "host", "--stage7-backend", "host")
-    n_small = held("host", tpl_s, DIGESTS_SMALL, host)
+    n_small = held(work / "host", tpl_s, DIGESTS_SMALL, host)
     if any(v["calls"] for v in host["routes"].values()):
         raise AssertionError(f"the host-routes run entered the device routes: {host['routes']}")
     log(f"earlier path (per-job routes): {N_READS_SMALL} reads, {n_small} ASVs all NM=0, outputs "
@@ -1727,6 +1827,110 @@ def stage1_kmers_phase(work: Path, int32_ops_per_s: float) -> dict:
     return {"cell": cell, **stage1_cell(work)}
 
 
+def operon_kernels(int32_ops_per_s: float) -> dict:
+    """Kernels 1 (both modes) and 2 at operon shapes: the planner's jobs at
+    band 128 from OPERON_KERNEL_TEMPLATES random templates of
+    OPERON_TEMPLATE_LEN bases, OPERON_KERNEL_READS reads each, against their
+    plain versions on the card (tolerance 0: integers) and the job routes
+    against the host oracle (check_kernels); each timed as QUEUED_RUNS
+    launches queued back to back and one alone, the plain version once,
+    with its bound (sw_bounds) and kernel 2's shared memory a warp and pairs
+    a block at this ops_max."""
+    import numpy as np
+
+    from savont_tpu_torch.ops.build import build_kernels
+    from savont_tpu_torch.probes.roofline import QUEUED_RUNS
+
+    jobs = plan(make_pairs(np.random.default_rng(OPERON_KERNEL_SEED), OPERON_KERNEL_TEMPLATES,
+                           OPERON_KERNEL_READS, OPERON_TEMPLATE_LEN), OPERON_BAND)
+    res = check_kernels(jobs, OPERON_BAND, time_plain=True, queued=True)
+    shape = res.pop("shape")
+    ops_max = shape["Lq"] + shape["Lt"]
+    wb = build_kernels().sw_walk_warp_bytes(OPERON_BAND, ops_max, MAXRUN)
+    if wb != walk_warp_bytes(OPERON_BAND, ops_max):
+        raise AssertionError(f"kernel 2's shared memory a warp at ops_max {ops_max}: the source "
+                             f"says {wb} B, walk_warp_bytes {walk_warp_bytes(OPERON_BAND, ops_max)}")
+    bounds = sw_bounds(shape, int32_ops_per_s)
+    out = {name: {**r, **bounds[name]} for name, r in res.items()}
+    out["shape"] = {**shape, "ops_max": ops_max, "walk_warp_bytes": wb,
+                    "walk_warps_per_block": walk_warps_per_block(wb)}
+    for name in SW_KERNELS:
+        r = out[name]
+        log(f"  {name} at operon shapes: {r['ms']:.4f} ms queued ({QUEUED_RUNS} launches), "
+            f"{r['single_ms']:.4f} ms single, {100 * r['bound_ms'] / r['ms']:.1f}% of its "
+            f"{r['bound_ms']:.4f} ms bound ({r['bound_by']}); plain {r['plain_ms']:.1f} ms; "
+            f"exact")
+    log(f"  operon shapes: {json.dumps(out['shape'])}; kernel 2 keeps {wb} B of shared memory "
+        f"a pair, {out['shape']['walk_warps_per_block']} pairs a block")
+    return out
+
+
+def check_operon_routes(tag: str, r: dict) -> None:
+    """The device routes of an operon run: no fallback, stage 7 carrying at
+    least half as many jobs as there are reads, each route every job its
+    flat planner made, in launches that add up to them, kernel time read
+    inside both, the device EM within EM_TOLERANCE of the host EM."""
+    s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
+    if s4["fallbacks"] or s7["fallbacks"]:
+        raise AssertionError(f"{tag}: the flat planner declined work: {r['routes']}")
+    if s7["jobs"] < N_READS_OPERON // 2:
+        raise AssertionError(f"{tag}: stage 7 carried {s7['jobs']} jobs, under {N_READS_OPERON // 2}")
+    for name, st in (("stage 4", s4), ("stage 7", s7)):
+        if not (st["calls"] >= 1 and st["jobs"] == st["planned"] > 0
+                and sum(st["launch_jobs"]) == st["jobs"] and st["kernel_ms"] > 0):
+            raise AssertionError(f"{tag}: {name} did not carry every planned job through the "
+                                 f"kernels: {st}")
+    if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
+        raise AssertionError(f"{tag}: device EM differs from the host EM by {s7['em_max_abs_diff']}")
+
+
+def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
+    """Phase "operon": kernels 1 and 2 at operon shapes (operon_kernels), then
+    the operon sample through `asv --rrna-operon` on the card: once untimed
+    and once timed on the default routes (stages 4p and 7 on the device),
+    then once with --stage1-backend mesh (kernel 4 too); each held to
+    DIGESTS_OPERON, NM=0, its kernels launched, no plain version, and its
+    device routes (check_operon_routes)."""
+    from savont_tpu_torch.ops.align_torch import PAYLOAD_BYTES
+
+    kern = operon_kernels(int32_ops_per_s)
+    phase_done("phase operon, kernels 1 and 2 at operon shapes")
+    d = work / "operon"
+    d.mkdir()
+    fq, tpl = d / "reads.fq.gz", d / "templates.fa"
+    operon_sample(fq, tpl)
+    runs = {}
+    for tag, extra, kernels in (("warmup", (), SW_KERNELS), ("mesh", (), SW_KERNELS),
+                                ("stage1_mesh", ("--stage1-backend", "mesh"),
+                                 SW_KERNELS + ("split_kmers",))):
+        r = cli_asv(d / tag, fq, "--rrna-operon", *extra)
+        r["n_asvs"] = held(d / tag, tpl, DIGESTS_OPERON, r, kernels)
+        check_operon_routes(tag, r)
+        s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
+        cut = [n * lq * OPERON_BAND for n, lq in zip(s4["launch_jobs"], s4["launch_lq"])]
+        wb = walk_warp_bytes(OPERON_BAND, s4["ops_max"])
+        log(f"operon {tag} (asv --rrna-operon{' ' + ' '.join(extra) if extra else ''}): "
+            f"{N_READS_OPERON} reads, {r['n_asvs']} ASVs all NM=0, outputs equal DIGESTS_OPERON; "
+            f"wall {r['wall_s']:.3f} s (kernel build excluded); stage seconds {r['stage_s']}")
+        log(f"  stage 4 route {s4['seconds']:.4f} s, kernels 1-2 {s4['kernel_ms']:.3f} device ms; "
+            f"{s4['jobs']} of {s4['planned']} planned jobs in {len(cut)} launches (cut: jobs "
+            f"{s4['launch_jobs']}, padded Lq {s4['launch_lq']}, payload bytes {cut} against "
+            f"PAYLOAD_BYTES {PAYLOAD_BYTES}); {s4['overflow']} pairs overflowed kernel 2 and were "
+            f"counted on the host; kernel 2 at ops_max {s4['ops_max']}: {wb} B a pair, "
+            f"{walk_warps_per_block(wb)} pairs a block")
+        log(f"  stage 7 route {s7['seconds']:.4f} s, kernel 1 {s7['kernel_ms']:.3f} device ms; "
+            f"{s7['jobs']} of {s7['planned']} planned jobs in {len(s7['launch_jobs'])} launches "
+            f"(jobs {s7['launch_jobs']}, padded Lq {s7['launch_lq']}); EM {s7['em_iters']} "
+            f"iterations, max |host - device| {s7['em_max_abs_diff']:.3e} (tolerance "
+            f"{EM_TOLERANCE})")
+        log(f"  launches {r['launches']}; per-job routes (stage-4 votes, stages 5-6) "
+            f"{r['per_job_route_s']}" + (f"; stage 1's count {json.dumps(r['stage1_count'])}"
+                                         if r["stage1_count"] else ""))
+        runs[tag] = r
+    log(f"  card: {nvidia_smi_line()}")
+    return {"kernels": kern, "runs": runs}
+
+
 def free_port() -> int:
     import socket
 
@@ -2020,6 +2224,16 @@ def ranks_alone(work: Path) -> dict:
     return ranks_phase(work, mp, cls)
 
 
+def operon_alone(work: Path, int32_ops_per_s: float = 32.6e12) -> dict:
+    """The operon phase alone, to iterate on it: the kernels built, then the
+    phase in `work`, its bounds at `int32_ops_per_s` (phase 4 measures the
+    rate; 32.6 T int32 ops/s is what it read on an H100 at 700 W)."""
+    from savont_tpu_torch.ops.build import build_kernels
+
+    build_kernels()
+    return operon_phase(work, int32_ops_per_s)
+
+
 def main() -> int:
     if not (ROOT / "savont_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repo "
@@ -2064,8 +2278,10 @@ def main() -> int:
     if len(jobs) < N_PAIRS_MIN or not any(max_jump(j) > 2 for j in jobs):
         raise AssertionError(f"job set too small or without band jumps > 2: {len(jobs)} pairs")
     res = check_kernels(jobs, BAND, time_plain=True)
-    res_op = check_kernels(plan(make_pairs(rng, 8, 32), OPERON_BAND), OPERON_BAND,
-                           time_plain=False)
+    # band 128 on 16S-length templates (the operon preset's band; its read
+    # lengths are the operon phase's)
+    res_128 = check_kernels(plan(make_pairs(rng, 8, 32), OPERON_BAND), OPERON_BAND,
+                            time_plain=False)
     phase_done("phase 3, kernels 1 and 2 at the planner's shapes")
     n_edge = check_edge_shapes()
     log(f"  edge shapes: {n_edge} cases, bands {EDGE_BANDS}: kernels 1 (both modes) and 2 == "
@@ -2181,6 +2397,8 @@ def main() -> int:
         phase_done("phase 6")
         km = stage1_kmers_phase(work, roof["int32_tops"] * 1e12)
         phase_done("phase 7")
+        op = operon_phase(work, roof["int32_tops"] * 1e12)
+        phase_done("phase operon")
         ranks_phase(work, mp, cls)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2222,9 +2440,16 @@ def main() -> int:
             if name == "split_kmers":
                 entry.update({k: km["cell"][k] for k in ("compact_ms", "sort_ms", "sort_count_ms")})
         else:
+            # the main path's shapes in the row; the operon phase's beside
+            # them, with the launches of its timed run
             entry = {"launches": mp["launches"][name], "max_abs_err": res[name]["max_abs_err"],
                      "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
-                     "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"]}
+                     "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+                     "operon": {"launches": op["runs"]["mesh"]["launches"][name],
+                                **{k: op["kernels"][name][k]
+                                   for k in ("max_abs_err", "ms", "single_ms", "plain_ms",
+                                             "bound_ms", "bound_by")},
+                                "shape": op["kernels"]["shape"]}}
         # no single PyTorch call computes a banded Smith-Waterman, its
         # traceback walk, or a dependent max/add chain; the probes time the
         # one call that computes their function where there is one
@@ -2234,10 +2459,11 @@ def main() -> int:
     log("sw_walk: " + json.dumps({k: v for k, v in res["sw_walk"].items() if k != "max_abs_err"}))
     log(f"bounds: {json.dumps(bounds)} (ops per cell {OPS_PER_CELL}, int32 rate "
         f"{roof['int32_tops']:.3f} T ops/s, {HBM_BYTES_PER_S / 1e12} TB/s)")
-    bounds_op = sw_bounds(res_op["shape"], roof["int32_tops"] * 1e12)
-    log("operon band: " + json.dumps({
-        name: {**{k: v for k, v in res_op[name].items() if k.endswith("_ms") or k == "ms"}, **b}
-        for name, b in bounds_op.items()}) + f" at {json.dumps(res_op['shape'])}")
+    bounds_128 = sw_bounds(res_128["shape"], roof["int32_tops"] * 1e12)
+    log("band 128 on 1,450-bp templates: " + json.dumps({
+        name: {**{k: v for k, v in res_128[name].items() if k.endswith("_ms") or k == "ms"}, **b}
+        for name, b in bounds_128.items()}) + f" at {json.dumps(res_128['shape'])}")
+    log("kernels 1 and 2 at operon shapes: " + json.dumps(op["kernels"]))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

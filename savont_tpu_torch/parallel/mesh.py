@@ -82,16 +82,18 @@ EM_CONV = 0.01  # the fixed point stops below EM_CONV / assigned reads, as the h
 # per route: calls, calls that fell to the per-job consumers (the planner
 # returned None), wall seconds inside, device milliseconds of its launches of
 # kernels 1 and 2 (CUDA events around each launch, read after the route's
-# last fetch; 0.0 on the CPU), plan jobs run, and of the last call
-# the EM iterations (stage 7) and the pairs whose CIGAR overflowed kernel 2
-# and were counted on the host (stage 4); em_max_abs_diff is the largest
-# difference between the device EM's abundances and the host float64 EM's
-# (em_cross_check)
+# last fetch; 0.0 on the CPU), plan jobs made by the flat planner and run by
+# this rank, the launch cut (per launch of kernel 1 its jobs and padded
+# query length; stage 4: the largest ops_max its kernel-2 launches took), and
+# of the last call the EM iterations (stage 7) and the pairs whose CIGAR
+# overflowed kernel 2 and were counted on the host (stage 4); em_max_abs_diff is the largest difference between the device EM's
+# abundances and the host float64 EM's (em_cross_check)
 ROUTE_STATS = {
-    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "jobs": 0,
-               "overflow": 0},
-    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "jobs": 0,
-               "em_iters": 0, "em_max_abs_diff": 0.0},
+    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "planned": 0,
+               "jobs": 0, "launch_jobs": [], "launch_lq": [], "ops_max": 0, "overflow": 0},
+    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "planned": 0,
+               "jobs": 0, "launch_jobs": [], "launch_lq": [], "em_iters": 0,
+               "em_max_abs_diff": 0.0},
 }
 
 
@@ -273,9 +275,12 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
         # this rank's jobs: a contiguous range of whole pairs, balanced by
         # cells (all of them without a process group)
         lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
+        stats["planned"] += len(owner_j)
         out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
         for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
             sel_t = torch.from_numpy(sel).to(dev)
+            stats["launch_jobs"].append(len(sel))
+            stats["launch_lq"].append(int(q_lens_j[lo + sel].max()))
             out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
         # every rank's (score, nm) in plan order
         out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
@@ -381,6 +386,7 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
         # winner is picked across its strand jobs in one launch), balanced
         # by payload cells; all of them without a process group
         lo_j, hi_j, _ = my_share(q_lens_j * band, group=owner_j)
+        stats["planned"] += len(owner_j)
         stats["jobs"] += hi_j - lo_j
         dp = plan_to_device(plan, *_build_target_pool(tgt_pool_bytes, ext=True), dev)
 
@@ -412,11 +418,14 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
             sel_t = torch.from_numpy(sel).to(dev)
             lens = dp["q_lens"][sel_t]
             Lq = int(lens.max())
+            stats["launch_jobs"].append(len(sel))
+            stats["launch_lq"].append(Lq)
             so, rv = src_off[sel_t], rev[sel_t]
             q = lut[rv.long()[:, None], gather_rows(seq_cat, so, lens, Lq, 256, reverse=rv).long()]
             lvl = gather_rows(lvl_cat, so, lens, Lq, 0, reverse=rv)
             hp = gather_rows(hp_cat, so, lens, Lq, 0, reverse=rv) if use_hp else lvl
             q, t, lo, tl = plan_tensors(dp, sel_t, q=q.contiguous())
+            stats["ops_max"] = max(stats["ops_max"], Lq + Lt)
             out = sw_pileup_counts(
                 q, t, lo, tl, lvl, hp, off_j[sel_t], pair_j[sel_t],
                 total_L, NQ, band, Lq + Lt, use_hp, acc=acc, maxrun=traceback_torch.MAXRUN,

@@ -8,8 +8,19 @@ need no external data.
 Also the converters that hand both packages identical inputs on the device
 routes of stages 4 and 7: the reference's flat plan (numpy) packed into its
 (rows, slots) panels the way its parallel/mesh.py packs them, and those
-panels as the flat-row tensors the port's functions take."""
+panels as the flat-row tensors the port's functions take; and
+steady_reference_native, which every port test that compares against a
+reference host path runs first (through clear_caches or directly)."""
+import fcntl
+import os
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+from pathlib import Path
+
 import numpy as np
+import pytest
 import torch
 
 from savont_tpu.ops.align import TargetIndex
@@ -225,11 +236,177 @@ def stage4_panels(plan, payload, roff, tgt_bytes, use_hp):
     }
 
 
+# ── the reference's native libraries ──────────────────────────────────────
+#
+# savont_tpu builds its host libraries in place, native/<name>.so, with
+# `g++ -o` and no lock across processes, and a library that fails to load
+# once stays unloaded for the rest of the process (ops/native_build.py
+# get_lib's _TRIED, build_extra's _EXTRA_CACHE and each caller's own flag):
+# a test worker that loads a file another worker's g++ is still writing
+# takes the NumPy fallback for every later call.  steady_reference_native()
+# makes sure every library is whole and loaded before a port test compares
+# against a reference host path.
+
+ROOT = Path(__file__).resolve().parent.parent
+REF_NATIVE_BUILD = ROOT / "build" / "reference_native"  # lock and temporary builds
+
+
+def reference_native_flags() -> dict[str, tuple[list[str], list[str]]]:
+    """Every library savont_tpu builds in native/: name -> (the flags before
+    -shared, the flags after the output), as its callers pass them
+    (ops/native_build.py _build and the build_extra calls)."""
+    import sysconfig
+
+    return {
+        "swalign": (["-fopenmp"], []),
+        "kmerscan": ([], ["-fopenmp"]),
+        "sortcount": ([], ["-fopenmp"]),
+        "pileup": ([], ["-fopenmp"]),
+        "fastx": ([], ["-lz"]),
+        "pyhelpers": ([f"-I{sysconfig.get_paths()['include']}", f"-I{np.get_include()}"], []),
+    }
+
+
+def _reference_loaders() -> dict:
+    """name -> (module, attribute of the loaded library, attribute of its
+    tried flag, loader): where savont_tpu keeps each library once loaded."""
+    import savont_tpu.io.fastx as fastx
+    import savont_tpu.ops.kmers_native as kn
+    import savont_tpu.ops.native_build as nb
+    import savont_tpu.pipeline.pileup as pileup
+
+    return {
+        "swalign": (nb, "_LIB", "_TRIED", nb.get_lib),
+        "kmerscan": (kn, "_LIB", "_TRIED", kn.get_scan_lib),
+        "sortcount": (kn, "_SC_LIB", "_SC_TRIED", kn.get_sortcount_lib),
+        "pileup": (pileup, "_PILEUP_LIB", "_PILEUP_TRIED", pileup._get_pileup_lib),
+        "fastx": (fastx, "_NATIVE", "_NATIVE_TRIED", fastx._native_lib),
+        "pyhelpers": (kn, "_PYH", "_PYH_TRIED", kn._pyhelpers),
+    }
+
+
+@contextmanager
+def _build_lock():
+    REF_NATIVE_BUILD.mkdir(parents=True, exist_ok=True)
+    with open(REF_NATIVE_BUILD / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _file_state(path: Path):
+    try:
+        st = path.stat()
+    except FileNotFoundError:
+        return None
+    return st.st_ino, st.st_size, st.st_mtime_ns
+
+
+def _loads(path: Path) -> bool:
+    """The library loads, tried in a child process (a file cut short can
+    fault the process that maps it)."""
+    r = subprocess.run([sys.executable, "-c", "import ctypes, sys; ctypes.CDLL(sys.argv[1])",
+                        str(path)], capture_output=True, timeout=60)
+    return r.returncode == 0
+
+
+def build_reference_library(name: str, out: Path) -> None:
+    """g++ native/<name>.cpp into `out` as savont_tpu builds it, through a
+    temporary file beside `out`'s lock directory, renamed into place."""
+    from savont_tpu.ops.native_build import _vector_width_flags
+
+    pre, post = reference_native_flags()[name]
+    REF_NATIVE_BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = REF_NATIVE_BUILD / f"{name}.{os.getpid()}.so"
+    cmd = ["g++", "-O3", "-march=native", *_vector_width_flags(), *pre, "-shared", "-fPIC",
+           str(ROOT / "native" / f"{name}.cpp"), "-o", str(tmp), *post]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building savont_tpu's native {name} failed: {r.stderr[-500:]}")
+    os.replace(tmp, out)
+
+
+# files already checked whole in this process: path -> _file_state
+_WHOLE: dict[Path, tuple] = {}
+
+
+def whole_library(src: Path, so: Path, build, settle: float = 0.25, patience: float = 3.0,
+                  deadline: float = 300.0) -> None:
+    """Return once `so` is a library that loads and is not older than `src`.
+    A missing or stale file is built (`build(so)`); a file that changes is
+    waited on until it has kept still for `settle` seconds; one that keeps
+    still but does not load is waited on for `patience` seconds more (another
+    process's compiler may be about to write it again), then built anew.
+    Raises after `deadline` seconds."""
+    t_end = time.monotonic() + deadline
+    while time.monotonic() < t_end:
+        st = _file_state(so)
+        if st is None or st[2] < src.stat().st_mtime_ns:
+            build(so)
+            continue
+        if _WHOLE.get(so) == st:
+            return
+        time.sleep(settle)
+        if _file_state(so) != st:
+            continue
+        if _loads(so):
+            _WHOLE[so] = st
+            return
+        waited = time.monotonic() + patience
+        while time.monotonic() < waited and _file_state(so) == st:
+            time.sleep(settle)
+        if _file_state(so) == st:
+            build(so)
+    raise RuntimeError(f"{so} did not become a whole library in {deadline} s")
+
+
+def steady_reference_native(names=None) -> None:
+    """Make savont_tpu's native libraries (all of them, or `names`) whole
+    and loaded in this process: under a lock across processes, build each
+    missing or stale one through a temporary file, wait out any other
+    writer, and check that it loads; then clear the reference's record of
+    a failed load (its _TRIED flags and build_extra's cached None) and load
+    each through its own loader.  Raises where one still does not load: a
+    comparison must not run quietly against the NumPy fallback."""
+    import savont_tpu.ops.native_build as nb
+
+    if os.environ.get("SAVONT_NO_NATIVE"):
+        raise RuntimeError("SAVONT_NO_NATIVE is set: savont_tpu would take its NumPy fallback")
+    names = list(names or reference_native_flags())
+    with _build_lock():
+        for name in names:
+            whole_library(ROOT / "native" / f"{name}.cpp", ROOT / "native" / f"{name}.so",
+                          lambda out, name=name: build_reference_library(name, out))
+    loaders = _reference_loaders()
+    for name in names:
+        mod, lib_attr, tried_attr, load = loaders[name]
+        if getattr(mod, lib_attr) is None:
+            setattr(mod, tried_attr, False)
+            if nb._EXTRA_CACHE.get(name, "") is None:
+                del nb._EXTRA_CACHE[name]
+        if load() is None:
+            raise RuntimeError(f"savont_tpu's native {name} did not load: the comparison would "
+                               "run against its NumPy fallback")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_native():
+    """steady_reference_native() before a module's tests, for the modules
+    that reach savont_tpu's host paths without clear_caches (import it into
+    the test module to use it)."""
+    steady_reference_native()
+
+
 def clear_caches() -> None:
     """Empty the module-level state of both packages that a pipeline run
     fills (parsed reads and their encodes, the planner's code and minimizer
     memos, the planner-code registry), so two runs in one process start
-    alike."""
+    alike; and make savont_tpu's native libraries whole and loaded
+    (steady_reference_native), so that its host paths are the native ones."""
+    steady_reference_native()
     import savont_tpu.ops.align
     import savont_tpu.ops.align_batch
     import savont_tpu.ops.encode

@@ -19,6 +19,7 @@ from savont_tpu_torch.ops.align_torch import (
     sw_forward_reference,
 )
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import max_advance, mixed_jobs, substitution_jobs
 
 BAND = 48

@@ -1,15 +1,17 @@
 """On the card: the port's `asv --device cuda`, with its device routes of
 stages 4 and 7 ("mesh", the default) and with its per-job routes ("perjob":
 --stage4-backend host --stage7-backend host), against the JAX package's host
-run_cluster on chip_smoke.py's 5,000 reads, in turns (ORDER below) after one
-untimed run of each, all in one process.  Every run's outputs must equal
+run_cluster on chip_smoke.py's 5,000 reads ("main"), and the same under the
+rRNA-operon preset (--rrna-operon / rrna_operon=True) on its 10,000 operon
+reads ("operon"), in turns (ORDER below) after one untimed run of each, all
+in one process.  Every run's outputs must equal
 the first host run's, byte for byte; the wall time of each run, the port's
 seconds by stage, inside its device routes (with the device milliseconds of
 kernels 1 and 2 in each) and inside its per-job DP routes are printed as one
 JSON line.
 
 Skips without a card.  On the card (no jax there, so without this
-directory's conftest):
+directory's conftest; `-k operon` or `-k main` for one sample):
     python -m pytest --noconftest -s -q tests/test_torch_card.py
 """
 import json
@@ -33,11 +35,17 @@ ORDER = ("host", "mesh", "perjob", "perjob", "mesh", "host", "host", "mesh", "pe
 ROUTES = {"mesh": [], "perjob": ["--stage4-backend", "host", "--stage7-backend", "host"]}
 
 
-def test_card_run_matches_host_run_in_turns(tmp_path):
+@pytest.mark.parametrize("sample", ["main", "operon"])
+def test_card_run_matches_host_run_in_turns(tmp_path, sample):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     fq, tpl = tmp_path / "reads.fq.gz", tmp_path / "templates.fa"
-    chip_smoke.write_reads(fq, tpl, chip_smoke.main_path_rng())
+    operon = sample == "operon"
+    if operon:
+        chip_smoke.operon_sample(fq, tpl)
+    else:
+        chip_smoke.write_reads(fq, tpl, chip_smoke.main_path_rng())
+    preset = ["--rrna-operon"] if operon else []
 
     def run(side: str, out) -> dict:
         clear_caches()
@@ -46,10 +54,11 @@ def test_card_run_matches_host_run_in_turns(tmp_path):
             align_batch.ROUTE_SECONDS[k] = 0.0
         t0 = time.perf_counter()
         if side == "host":
-            run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(out), threads=4))
+            run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(out), threads=4,
+                                    rrna_operon=operon))
             return {"side": side, "wall_s": time.perf_counter() - t0}
         assert cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out),
-                         "--device", "cuda", "-t", "4", *ROUTES[side]]) == 0
+                         "--device", "cuda", "-t", "4", *preset, *ROUTES[side]]) == 0
         torch.cuda.synchronize()
         return {"side": side, "wall_s": time.perf_counter() - t0,
                 "dp_route_s": sum(align_batch.ROUTE_SECONDS.values()),
@@ -68,4 +77,4 @@ def test_card_run_matches_host_run_in_turns(tmp_path):
         assert all(calls) if side == "mesh" else not any(calls)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": smi, "first_runs_s": first, "runs": runs}))
+    print(json.dumps({"sample": sample, "card": smi, "first_runs_s": first, "runs": runs}))

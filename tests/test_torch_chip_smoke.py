@@ -2,6 +2,8 @@
 JAX package's host runs on its generated reads and classification inputs,
 its bounds follow from the shapes, and it refuses to run (exit code not 0,
 no result line) without a card or without the repository around it."""
+import gzip
+import hashlib
 import shutil
 import subprocess
 import sys
@@ -29,7 +31,9 @@ ROOT = Path(__file__).resolve().parent.parent
 def host_runs(tmp_path_factory):
     """savont_tpu's host run_cluster on chip_smoke's two seed-pinned samples,
     laid out as phase 5 leaves its work directory: the main sample's
-    templates.fa, its run in mesh/, the host-routes sample's in host/."""
+    templates.fa, its run in mesh/, the host-routes sample's in host/; and
+    run_cluster(rrna_operon=True) on the operon phase's sample, in
+    operon/host/ beside its reads and templates."""
     work = tmp_path_factory.mktemp("chip_smoke_work")
     rng = chip_smoke.main_path_rng()
     for tag, tpl, n in (("mesh", work / "templates.fa", chip_smoke.N_READS),
@@ -39,6 +43,12 @@ def host_runs(tmp_path_factory):
         chip_smoke.write_reads(fq, tpl, rng, n)
         clear_caches()
         run_cluster(ClusterArgs(input_files=[str(fq)], output_dir=str(work / tag), threads=4))
+    op = work / "operon"
+    op.mkdir()
+    chip_smoke.operon_sample(op / "reads.fq.gz", op / "templates.fa")
+    clear_caches()
+    run_cluster(ClusterArgs(input_files=[str(op / "reads.fq.gz")], output_dir=str(op / "host"),
+                            threads=4, rrna_operon=True))
     return work
 
 
@@ -57,6 +67,66 @@ def test_small_sample_digests_equal_host_run(host_runs):
     val = validate_asvs(str(host_runs / "host" / "final_asvs.fasta"),
                         str(host_runs / "small" / "templates.fa"))
     assert len(val) >= 5 and all(v.nm == 0 for v in val)
+
+
+def test_operon_digests_equal_host_run(host_runs):
+    """The operon phase's digests are those of savont_tpu's host
+    run_cluster(rrna_operon=True) on the operon sample: ten operon ASVs,
+    each at NM=0 against its template."""
+    op = host_runs / "operon"
+    assert chip_smoke.output_digests(op / "host") == chip_smoke.DIGESTS_OPERON
+    val = validate_asvs(str(op / "host" / "final_asvs.fasta"), str(op / "templates.fa"))
+    assert len(val) == 10 and all(v.nm == 0 for v in val)
+
+
+# sha256 of the decompressed fastq and of the templates of each earlier
+# sample, as write_reads made them before it took a template length
+EARLIER_SAMPLES = {
+    "main": ("072d36e0ee8c5c0901dcef5c785bba6649c827e97848556fa205163be74f5185",
+             "7264f33c4ee47d603c1fec210bc59441277f568819de93005a19befa0e86b3b7"),
+    "small": ("35f0b4658e6316979d5fb0fd0e51899f3b18f53f6516dc2efe404db9758bfad5",
+              "c4d3911171834e0628e7c34264d9366a8ef58ab6fc0837133675d6b2eadaf8be"),
+    "kmer_cell": ("4772feff6ebbcf20ac593bb376c674758afdcd3470894a5db879e99d28ed32f5",
+                  "b961089176f30668a31884fb246082ab60be76c359a2d2c851727ac063964bd8"),
+}
+
+
+def _sample_digests(fq, tpl):
+    return (hashlib.sha256(gzip.decompress(fq.read_bytes())).hexdigest(),
+            hashlib.sha256(tpl.read_bytes()).hexdigest())
+
+
+def test_earlier_samples_did_not_move(tmp_path):
+    """The main, host-routes and k-mer cell samples draw the same numbers as
+    before write_reads took a template length (phase 3's make_pairs draws
+    come before the main sample, so it covers them too), so DIGESTS,
+    DIGESTS_SMALL and DIGESTS_CLASSIFICATION still hold."""
+    import numpy as np
+
+    rng = chip_smoke.main_path_rng()
+    got = {}
+    for tag, n in (("main", chip_smoke.N_READS), ("small", chip_smoke.N_READS_SMALL)):
+        fq, tpl = tmp_path / f"{tag}.fq.gz", tmp_path / f"{tag}.fa"
+        chip_smoke.write_reads(fq, tpl, rng, n)
+        got[tag] = _sample_digests(fq, tpl)
+    fq, tpl = tmp_path / "kmer.fq.gz", tmp_path / "kmer.fa"
+    chip_smoke.write_reads(fq, tpl, np.random.default_rng(chip_smoke.KMER_SEED),
+                           chip_smoke.N_KMER_READS)
+    got["kmer_cell"] = _sample_digests(fq, tpl)
+    assert got == EARLIER_SAMPLES
+
+
+def test_operon_sample_is_one_operon_barcode(host_runs):
+    """10,000 reads of 10 templates of 4,400 bp, every read inside the
+    preset's 3,500-5,000 bp."""
+    from savont_tpu_torch.io.fastx import read_fastx_records
+
+    op = host_runs / "operon"
+    tpls = [l for l in (op / "templates.fa").read_text().splitlines() if not l.startswith(">")]
+    assert len(tpls) == 10 and {len(t) for t in tpls} == {chip_smoke.OPERON_TEMPLATE_LEN}
+    reads = [r.seq for r in read_fastx_records(str(op / "reads.fq.gz"))]
+    assert len(reads) == chip_smoke.N_READS_OPERON
+    assert all(3500 <= len(r) <= 5000 for r in reads)
 
 
 def test_classification_digests_equal_host_runs(host_runs, monkeypatch):
@@ -98,6 +168,45 @@ def test_kernels_table_names_every_counter():
     assert counted == set(chip_smoke.KERNELS)
     for src, rep in chip_smoke.KERNELS.values():
         assert (ROOT / src).is_file() and (ROOT / rep.split(":")[0]).is_file()
+
+
+def test_walk_layout_matches_the_kernel_source():
+    """walk_warp_bytes and walk_warps_per_block follow sw_walk.cu's
+    make_layout and launch: its constants are chip_smoke's.  At operon
+    shapes (band 128, ops_max about 9,000) a pair's warp keeps about 24 KB,
+    and four pairs still share a block."""
+    import re
+
+    text = (ROOT / "savont_tpu_torch" / "ops" / "csrc" / "sw_walk.cu").read_text()
+    const = {k: int(re.search(rf"constexpr int {k} = (\d+)", text).group(1))
+             for k in ("kWarps", "kStages", "kMaxRows", "kWindowBytes")}
+    assert const == {"kWarps": chip_smoke.WALK_WARPS, "kStages": chip_smoke.WALK_STAGES,
+                     "kMaxRows": chip_smoke.WALK_MAX_ROWS,
+                     "kWindowBytes": chip_smoke.WALK_WINDOW_BYTES}
+    assert "constexpr int kMaxShared = 227 * 1024;" in text
+    assert chip_smoke.walk_warp_bytes(128, 8800) == 3 * (4112 + 144) + 8800 + 2048
+    assert chip_smoke.walk_warps_per_block(chip_smoke.walk_warp_bytes(128, 8800)) == 4
+    assert chip_smoke.walk_warps_per_block(chip_smoke.walk_warp_bytes(48, 150_000)) == 1
+    assert chip_smoke.walk_warps_per_block(chip_smoke.walk_warp_bytes(48, 60_000)) == 2
+
+
+def test_operon_phase_stands_between_phases_7_and_8():
+    """The docstring names the operon phase between phases 7 and 8, main()
+    runs it there, its kernels 1 and 2 carry an operon sub-object in the
+    kernels line, and the last two lines stay the kernels line and the
+    result line."""
+    import inspect
+
+    doc = chip_smoke.__doc__
+    assert doc.index("7. stage-1 k-mers") < doc.index("operon       -") < doc.index("8. ranks")
+    src = inspect.getsource(chip_smoke.main)
+    assert (src.index("stage1_kmers_phase(") < src.index("operon_phase(")
+            < src.index("ranks_phase("))
+    assert '"operon": {"launches": op["runs"]["mesh"]["launches"][name]' in src
+    tail = [l.strip() for l in src.splitlines() if l.strip().startswith("log(")][-3:]
+    assert tail[0] == "log(nvidia_smi_line())"
+    assert tail[1] == 'log(json.dumps({"kernels": kernels}))'
+    assert tail[2].startswith('log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,')
 
 
 def test_sw_bounds_from_shapes():

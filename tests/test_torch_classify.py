@@ -28,6 +28,7 @@ from savont_tpu_torch.ops import align_batch
 from savont_tpu_torch.ops.align_torch import REFERENCE_CALLS, reset_counters
 from savont_tpu_torch.pipeline import classify as port_classify
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import (
     foreign_ends, graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db,
 )

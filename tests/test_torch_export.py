@@ -13,6 +13,7 @@ from savont_tpu.pipeline import sintax as jax_sintax
 from savont_tpu_torch.config import ExportArgs
 from savont_tpu_torch.pipeline import export as port_export
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db
 
 OUTPUTS = ("merged_feature_table.tsv", "merged_rep_seqs.fasta", "merged_asv_taxonomy.tsv",

@@ -17,7 +17,7 @@ from savont_tpu_torch.ops import align_batch as port_ab
 from savont_tpu_torch.ops import host_dp, native_build
 from savont_tpu_torch.ops.align import TargetIndex as PortIndex
 
-from _torch_jobs import clear_caches, mixed_pairs
+from _torch_jobs import clear_caches, mixed_pairs, steady_reference_native
 
 ROOT = Path(__file__).resolve().parent.parent
 BAND = 48
@@ -108,6 +108,7 @@ def test_host_oracle_matches_savont_tpu(mode, monkeypatch):
     """The port's copy of the host C++ DP equals savont_tpu's run_jobs /
     run_jobs_nm on the host path, CIGARs included; so does its NumPy
     fallback, taken where no C++ library could be built."""
+    steady_reference_native()
     pairs = mixed_pairs(seed=75, n=8)
     jobs, _ = host_ab._plan_pairs(pairs, BAND)
     if mode == "numpy":

@@ -24,6 +24,8 @@ from savont_tpu_torch.ops.encode import encode_seq
 from savont_tpu_torch.ops.kmers import count_flagged_kmers
 from savont_tpu_torch.parallel.mesh import split_kmer_count
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
+
 MIN_BQ = chip_smoke.MIN_BQ
 PAD_L = 12_288  # one padded width for every case (the longest read is 12,000)
 CASES = [c["name"] for c in chip_smoke.kmer_edge_cases(17)]

@@ -26,6 +26,7 @@ from savont_tpu_torch.ops import sintax_torch
 from savont_tpu_torch.ops.encode import revcomp_bytes
 from savont_tpu_torch.pipeline import sintax as port_sintax
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db
 
 OUTPUTS = ("genus_abundance.tsv", "asv_mappings.tsv")

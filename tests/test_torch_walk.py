@@ -20,6 +20,7 @@ from savont_tpu_torch.ops.traceback_torch import (
     walk_rle_reference,
 )
 
+from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import max_advance, mixed_jobs, rand_seq, substitute
 
 BAND = 48
