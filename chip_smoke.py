@@ -126,6 +126,29 @@ failure; nothing catches it, so the exit code is non-zero):
                  each run's wall, stage seconds, route seconds beside
                  kernel_ms, launch cut, overflow pairs and kernel 2's pairs
                  a block printed, with nvidia-smi's name and power limit;
+  scale        - one ONT PromethION 16S barcode's scale: a seed-pinned
+                 sample of 100,000 reads (scale_sample: phase 5's error
+                 model, 48 templates, 24 random and a 4-6 SNP variant of
+                 each, in even abundance) through `asv` on the card on the
+                 default routes and with --stage1-backend mesh: each held
+                 to DIGESTS_SCALE (the JAX package's host run), all 48 ASVs
+                 at NM=0, kernels 1 (both modes) and 2 launched (and 4 by
+                 the mesh run), no plain version, no fallback, stages 4 and
+                 7 each in two launches or more carrying every planned job,
+                 the device EM within 1e-4 of the host EM; each run's wall,
+                 stage seconds, route seconds beside kernel_ms, launch cut
+                 and torch.cuda.max_memory_allocated printed (and stage 1's
+                 count under mesh).  Then build_emu_slice of the 48
+                 templates at 100,000 references, `classify` of the 48 ASVs
+                 and of 40 hard ASVs cut from that database and `sintax` of
+                 the 48 ASVs, held to DIGESTS_SCALE_CLASSIFICATION, sintax
+                 over every reference in chunks of 4,096 (25 launches of
+                 kernel 3).  Then kernel 1 (NM) on one full stage-7 launch
+                 of the sample (16,384 jobs at band 48) and kernel 3 on the
+                 48 ASVs' 4,800 pairs (two pair tiles) against the first
+                 4,096 references: each against its plain version at
+                 tolerance 0, timed as 20 queued launches and one alone,
+                 with its bound;
   8. ranks     - the port over ranks (parallel/distributed.py), the ranks
                  being this script again with --rank-worker, each into its
                  own directory; a rank that fails fails the run.  One NCCL
@@ -159,6 +182,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -290,6 +314,38 @@ DIGESTS_OPERON = {
     "final_asvs.fasta": "a5caabf08d94c0017423f9b6d59ad174e50280392ce1b32481882646b7bf547f",
     "feature-table.tsv": "a3d9ec279c7017d8a35a8810527a2723fc41ed34a1556e771a419f55abb40d7b",
     "temp/read_to_asv_mappings.tsv": "91054c6e10d25896a61944083abaa9e4bd543b1d0673c11964e8e2e4559eb3a6",
+}
+# phase "scale": one ONT PromethION 16S barcode's worth of reads from a
+# community of tens of taxa, classified against 100,000 references
+N_READS_SCALE = 100_000
+N_TEMPLATES_SCALE = 48          # 24 random templates and a 4-6 SNP variant of each
+SCALE_SEED = SEED + 10          # the sample's own generator
+SCALE_BATCH = 10_000            # reads drawn at once
+SCALE_DB_REFS = 100_000
+# sha256 of the outputs of the JAX package's host `asv -t 4`, in a fresh
+# process, on scale_sample's reads
+DIGESTS_SCALE = {
+    "final_asvs.fasta": "11029928b9034bda8f028e43be9be62962bb9d34d77b448d45160bd34548b90d",
+    "feature-table.tsv": "0871bf06da7e55f884c0266e862bd3e9a3e940e39b63fc49d02b0692b5499f82",
+    "temp/read_to_asv_mappings.tsv": "2574b6732c3dffc4d7050993f86b9704435e780c47ac260032436e0356430e32",
+}
+# the same for its build_emu_slice of the scale templates (SCALE_DB_REFS
+# references, DB_SEED), `classify` of the scale ASVs (written into their
+# directory, asv/) and of write_hard_asvs' ASVs cut from that database
+# (hard/), and `sintax` of the scale ASVs (sintax/), each in a fresh process
+# (band 128); paths relative to the scale phase's directory
+# (tests/test_torch_scale_digests.py re-derives both sets)
+DIGESTS_SCALE_CLASSIFICATION = {
+    "db/emu/species_taxid.fasta": "56342b43e1d66a582c5ecdc3105ab407445a42672c59d7f376d138cee37e4982",
+    "db/emu/taxonomy.tsv": "b1f31fac1e8ac1d50c08286e429a5a4adaafc30119a84c5d911e02c1b494b871",
+    "asv/species_abundance.tsv": "e1fd44c77682c8ae621e02cad616d2da0915468e2115bc47f4c33d0db6490d4b",
+    "asv/genus_abundance.tsv": "b480352fa00ca1d0a8b7006af8ab896a09268b546aa12353ec8476c3bb3255db",
+    "asv/asv_mappings.tsv": "6658d2bad5464ab9c2024904abb175c62710f15ee24b7a224a263426c4bf3134",
+    "hard/species_abundance.tsv": "8d7ea48379d166c73184174006038c9f864fc0dabed6ce2577205d0ce5502de4",
+    "hard/genus_abundance.tsv": "10b16c9e295901d9b196abf3e1d3856c7648ad5c8445296927be4ccef297e692",
+    "hard/asv_mappings.tsv": "0d0da052201e457b10b3f688a8a1dda624de2bc6ee17bc3b497b425f4e1fac87",
+    "sintax/genus_abundance.tsv": "b480352fa00ca1d0a8b7006af8ab896a09268b546aa12353ec8476c3bb3255db",
+    "sintax/asv_mappings.tsv": "aeaea4c5f191f28884ad45268b2cd6e46def0620e16c6466942165f114dcd74c",
 }
 # kernel 2's shared memory (ops/csrc/sw_walk.cu: kWarps, kStages, kMaxRows,
 # kWindowBytes, kMaxShared)
@@ -1030,6 +1086,58 @@ def operon_sample(fq: Path, tpl: Path) -> None:
     write_reads(fq, tpl, np.random.default_rng(OPERON_SEED), N_READS_OPERON, OPERON_TEMPLATE_LEN)
 
 
+def scale_sample(fq: Path, tpl: Path, n_reads: int = N_READS_SCALE,
+                 n_templates: int = N_TEMPLATES_SCALE) -> None:
+    """The scale phase's sample: n_reads reads of write_reads' error model
+    (1.5% substitutions; 30% / 10% / 2% of reads with a 1-2 / 2-6 / 50 bp
+    deletion, applied in that order; half reverse-complemented) from
+    n_templates templates of TEMPLATE_LEN bases, half random and half a
+    variant of one of them with 4-6 SNPs at least 60 bases from either end,
+    in even abundance (read i from template i % n_templates).  Drawn from
+    its own generator in batches of SCALE_BATCH reads, a read's
+    substitutions as one draw a base, so 100,000 reads take seconds."""
+    import numpy as np
+
+    rng = np.random.default_rng(SCALE_SEED)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n_random = n_templates // 2
+    tpls = rng.choice(bases, (n_random, TEMPLATE_LEN))
+    variants = tpls.copy()
+    for v in variants:
+        pos = rng.choice(np.arange(60, TEMPLATE_LEN - 60), int(rng.integers(4, 7)), replace=False)
+        v[pos] = bases[(np.searchsorted(bases, v[pos]) + rng.integers(1, 4, len(pos))) % 4]
+    tpls = np.concatenate([tpls, variants])
+    with open(tpl, "w") as f:
+        for i, t in enumerate(tpls):
+            f.write(f">template{i}\n{t.tobytes().decode()}\n")
+    # base codes 0-3, so that a substitution is an add of 1-3 mod 4
+    codes = np.searchsorted(bases, tpls).astype(np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    with gzip.open(fq, "wb", compresslevel=1) as out:
+        for b0 in range(0, n_reads, SCALE_BATCH):
+            n = min(SCALE_BATCH, n_reads - b0)
+            ti = np.arange(b0, b0 + n) % n_templates
+            shift = rng.integers(1, 4, (n, TEMPLATE_LEN), dtype=np.uint8)
+            shift[rng.random((n, TEMPLATE_LEN)) >= 0.015] = 0
+            seqs = bases[(codes[ti] + shift) % 4]
+            # per deletion kind: whether a read has it, its length and its
+            # place as a fraction of the room [100, len - 160) left then
+            dels = [(rng.random(n) < frac, rng.integers(lo_len, hi_len + 1, n), rng.random(n))
+                    for frac, lo_len, hi_len in ((0.30, 1, 2), (0.10, 2, 6), (0.02, 50, 50))]
+            rc = rng.random(n) < 0.5
+            chunk = []
+            for r in range(n):
+                s = seqs[r].tobytes()
+                for has, length, at in dels:
+                    if has[r]:
+                        p = 100 + int(at[r] * (len(s) - 260))
+                        s = s[:p] + s[p + int(length[r]):]
+                if rc[r]:
+                    s = s.translate(comp)[::-1]
+                chunk.append(b"@t%d_r%d\n%s\n+\n%s\n" % (ti[r], b0 + r, s, b"I" * len(s)))
+            out.write(b"".join(chunk))
+
+
 def output_digests(out_dir: Path) -> dict[str, str]:
     return {rel: hashlib.sha256((out_dir / rel).read_bytes()).hexdigest() for rel in DIGESTS}
 
@@ -1405,58 +1513,64 @@ def classify_nm_cell(work: Path, asv_dir: Path, int32_ops_per_s: float) -> dict:
     return out
 
 
+def cli_counted(tag: str, *argv: str) -> dict:
+    """One CLI run on the card with the counts of the classification routes
+    set to 0 just before it; what it counted, read just after (kernel
+    launches, the classify route's CLASSIFY_STATS, sintax's SCORE_STATS),
+    and no plain version called."""
+    from savont_tpu_torch import cli
+    from savont_tpu_torch.ops import align_batch, align_torch, sintax_torch
+    from savont_tpu_torch.pipeline import sintax as sintax_mod
+
+    align_torch.reset_counters()
+    sintax_torch.reset_counters()
+    for d in (align_batch.CLASSIFY_STATS, sintax_mod.SCORE_STATS):
+        for k in d:
+            d[k] = type(d[k])()
+    t0 = time.perf_counter()
+    rc = cli.main(["--log-level", "warn", *argv])
+    r = {"wall_s": time.perf_counter() - t0, "launches": dict(align_torch.LAUNCHES),
+         "sintax_launches": dict(sintax_torch.LAUNCHES),
+         "classify": dict(align_batch.CLASSIFY_STATS), "sintax": dict(sintax_mod.SCORE_STATS)}
+    plain = {**align_torch.REFERENCE_CALLS, **sintax_torch.REFERENCE_CALLS}
+    if rc != 0 or any(plain.values()):
+        raise AssertionError(f"{tag}: exit {rc}, plain versions called {plain}")
+    return r
+
+
+def cli_classify(tag: str, out_dir: Path, db_dir: Path) -> dict:
+    """`classify` of out_dir's ASVs against db_dir on the card (cli_counted):
+    kernel 1 (NM) over the candidate jobs, kernels 1 (payload) + 2 over
+    the written hits only, with the route's seconds by part."""
+    from savont_tpu_torch.pipeline.classify import CLASSIFY_SECONDS
+
+    r = cli_counted(tag, "classify", "-i", str(out_dir), "-d", str(db_dir), "--device", "cuda")
+    c, ln = r["classify"], r["launches"]
+    rows = (out_dir / "asv_mappings.tsv").read_text().splitlines()[1:]
+    written = sum(row.split("\t")[2] != "NA" for row in rows)
+    if not (c["calls"] == 1 and c["jobs"] >= 1 and ln["sw_forward_nm"] >= 1):
+        raise AssertionError(f"{tag}: kernel 1 (NM) did not carry the candidate jobs: {r}")
+    if c["start_jobs"] != written or ln["sw_forward_payload"] != ln["sw_walk"] or (
+            written and ln["sw_walk"] < 1):
+        raise AssertionError(f"{tag}: kernels 1 (payload) + 2 ran on {c['start_jobs']} jobs, "
+                             f"classify wrote {written} hits: {r}")
+    r["parts_s"] = dict(CLASSIFY_SECONDS)
+    log(f"classify {tag}: {c['pairs']} candidate pairs, {c['jobs']} jobs through kernel 1 "
+        f"(NM), {c['start_jobs']} written hits through kernels 1 (payload) + 2; launches "
+        f"{ln}; route {c['seconds']:.3f} s ({c['plan_s']:.3f} s of it in the flat planner) "
+        f"of {r['wall_s']:.3f} s wall, kernels 1 and 2 {c['kernel_ms']:.3f} device ms; "
+        f"seconds by part {json.dumps({k: round(v, 3) for k, v in CLASSIFY_SECONDS.items()})}; "
+        f"{nvidia_smi_line()}")
+    return r
+
+
 def classification(work: Path, int32_ops_per_s: float) -> dict:
     """Phase 6: classify, sintax and export through
     savont_tpu_torch.cli.main on the card, on phase 5's work directory, held
     to DIGESTS_CLASSIFICATION, with the launches of each route counted from
     0 just before it; then kernel 3 on its edge cases and at the cell's
     shapes, and kernel 1 (NM) at the classify cell's shapes."""
-    from savont_tpu_torch import cli
     from savont_tpu_torch.db.synth import build_emu_slice
-    from savont_tpu_torch.ops import align_batch, align_torch, sintax_torch
-    from savont_tpu_torch.pipeline import sintax as sintax_mod
-    from savont_tpu_torch.pipeline.classify import CLASSIFY_SECONDS
-
-    def reset():
-        align_torch.reset_counters()
-        sintax_torch.reset_counters()
-        for d in (align_batch.CLASSIFY_STATS, sintax_mod.SCORE_STATS):
-            for k in d:
-                d[k] = type(d[k])()
-
-    def counted(tag: str, *argv: str) -> dict:
-        """One CLI run with every count set to 0 just before it; what it
-        counted, read just after, and no plain version called."""
-        reset()
-        t0 = time.perf_counter()
-        rc = cli.main(["--log-level", "warn", *argv])
-        r = {"wall_s": time.perf_counter() - t0, "launches": dict(align_torch.LAUNCHES),
-             "sintax_launches": dict(sintax_torch.LAUNCHES),
-             "classify": dict(align_batch.CLASSIFY_STATS), "sintax": dict(sintax_mod.SCORE_STATS)}
-        plain = {**align_torch.REFERENCE_CALLS, **sintax_torch.REFERENCE_CALLS}
-        if rc != 0 or any(plain.values()):
-            raise AssertionError(f"{tag}: exit {rc}, plain versions called {plain}")
-        return r
-
-    def classified(tag: str, out_dir: Path) -> dict:
-        r = counted(tag, "classify", "-i", str(out_dir), "-d", str(db_dir), "--device", "cuda")
-        c, ln = r["classify"], r["launches"]
-        rows = (out_dir / "asv_mappings.tsv").read_text().splitlines()[1:]
-        written = sum(row.split("\t")[2] != "NA" for row in rows)
-        if not (c["calls"] == 1 and c["jobs"] >= 1 and ln["sw_forward_nm"] >= 1):
-            raise AssertionError(f"{tag}: kernel 1 (NM) did not carry the candidate jobs: {r}")
-        if c["start_jobs"] != written or ln["sw_forward_payload"] != ln["sw_walk"] or (
-                written and ln["sw_walk"] < 1):
-            raise AssertionError(f"{tag}: kernels 1 (payload) + 2 ran on {c['start_jobs']} jobs, "
-                                 f"classify wrote {written} hits: {r}")
-        r["parts_s"] = dict(CLASSIFY_SECONDS)
-        log(f"classify {tag}: {c['pairs']} candidate pairs, {c['jobs']} jobs through kernel 1 "
-            f"(NM), {c['start_jobs']} written hits through kernels 1 (payload) + 2; launches "
-            f"{ln}; route {c['seconds']:.3f} s ({c['plan_s']:.3f} s of it in the flat planner) "
-            f"of {r['wall_s']:.3f} s wall, kernels 1 and 2 {c['kernel_ms']:.3f} device ms; "
-            f"seconds by part {json.dumps({k: round(v, 3) for k, v in CLASSIFY_SECONDS.items()})}; "
-            f"{nvidia_smi_line()}")
-        return r
 
     out: dict = {}
     t0 = time.perf_counter()
@@ -1464,10 +1578,10 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     db_dir = work / "db" / "emu"
     log(f"database: build_emu_slice, {DB_REFS} references, {time.perf_counter() - t0:.2f} s")
     write_hard_asvs(db_dir / "species_taxid.fasta", work / "hard")
-    out["classify_mesh"] = classified("phase-5 ASVs", work / "mesh")
-    out["classify_hard"] = classified(f"{N_HARD} hard ASVs", work / "hard")
+    out["classify_mesh"] = cli_classify("phase-5 ASVs", work / "mesh", db_dir)
+    out["classify_hard"] = cli_classify(f"{N_HARD} hard ASVs", work / "hard", db_dir)
     sintax_args = ["-i", str(work / "mesh"), "-d", str(db_dir), "--device", "cuda"]
-    r = counted("sintax", "sintax", "-o", str(work / "sintax"), *sintax_args)
+    r = cli_counted("sintax", "sintax", "-o", str(work / "sintax"), *sintax_args)
     sx = r["sintax"]
     if r["sintax_launches"]["sintax_scores"] < 1:
         raise AssertionError(f"sintax: kernel 3 did not carry the scores: {r}")
@@ -1479,8 +1593,8 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     out["sintax"] = r
     # the same under --profile: the same outputs, profile.pstats and a trace
     prof = work / "profile"
-    rp = counted("sintax --profile", "--profile", str(prof), "sintax", "-o",
-                 str(work / "sintax_profiled"), *sintax_args)
+    rp = cli_counted("sintax --profile", "--profile", str(prof), "sintax", "-o",
+                     str(work / "sintax_profiled"), *sintax_args)
     for name in ("genus_abundance.tsv", "asv_mappings.tsv"):
         if (work / "sintax_profiled" / name).read_bytes() != (work / "sintax" / name).read_bytes():
             raise AssertionError(f"sintax under --profile wrote another {name}")
@@ -1492,8 +1606,8 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
         f"profile.pstats and trace.json ({len(events)} events, {len(on_card)} device kernels, "
         f"{sum('sintax' in e.get('name', '') for e in on_card)} of them kernel 3) written")
     out["profile_kernels"] = len(on_card)
-    counted("export", "export", "-i", str(work / "mesh"), str(work / "host"), "-o",
-            str(work / "export"), "--relabel", *EXPORT_LABELS)
+    cli_counted("export", "export", "-i", str(work / "mesh"), str(work / "host"), "-o",
+                str(work / "export"), "--relabel", *EXPORT_LABELS)
     got = classification_digests(work)
     if got != DIGESTS_CLASSIFICATION:
         raise AssertionError(f"classification outputs differ from the pinned digests of the "
@@ -1865,21 +1979,26 @@ def operon_kernels(int32_ops_per_s: float) -> dict:
     return out
 
 
-def check_operon_routes(tag: str, r: dict) -> None:
-    """The device routes of an operon run: no fallback, stage 7 carrying at
-    least half as many jobs as there are reads, each route every job its
-    flat planner made, in launches that add up to them, kernel time read
-    inside both, the device EM within EM_TOLERANCE of the host EM."""
+def check_asv_routes(tag: str, r: dict, n_reads: int, min_launches: int = 1) -> None:
+    """The device routes of cli_asv's run r: no fallback; stage 7 carrying
+    at least half as many jobs as there are reads; each route every job its
+    flat planner made, in at least min_launches launches of at most
+    PAIRS_PER_LAUNCH jobs that add up to them, kernel time read inside it;
+    the device EM within EM_TOLERANCE of the host EM."""
+    from savont_tpu_torch.ops.align_torch import PAIRS_PER_LAUNCH
+
     s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
     if s4["fallbacks"] or s7["fallbacks"]:
         raise AssertionError(f"{tag}: the flat planner declined work: {r['routes']}")
-    if s7["jobs"] < N_READS_OPERON // 2:
-        raise AssertionError(f"{tag}: stage 7 carried {s7['jobs']} jobs, under {N_READS_OPERON // 2}")
+    if s7["jobs"] < n_reads // 2:
+        raise AssertionError(f"{tag}: stage 7 carried {s7['jobs']} jobs, under {n_reads // 2}")
     for name, st in (("stage 4", s4), ("stage 7", s7)):
         if not (st["calls"] >= 1 and st["jobs"] == st["planned"] > 0
-                and sum(st["launch_jobs"]) == st["jobs"] and st["kernel_ms"] > 0):
+                and sum(st["launch_jobs"]) == st["jobs"]
+                and len(st["launch_jobs"]) >= min_launches
+                and max(st["launch_jobs"]) <= PAIRS_PER_LAUNCH and st["kernel_ms"] > 0):
             raise AssertionError(f"{tag}: {name} did not carry every planned job through the "
-                                 f"kernels: {st}")
+                                 f"kernels in {min_launches} launches or more: {st}")
     if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
         raise AssertionError(f"{tag}: device EM differs from the host EM by {s7['em_max_abs_diff']}")
 
@@ -1890,7 +2009,7 @@ def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
     and once timed on the default routes (stages 4p and 7 on the device),
     then once with --stage1-backend mesh (kernel 4 too); each held to
     DIGESTS_OPERON, NM=0, its kernels launched, no plain version, and its
-    device routes (check_operon_routes)."""
+    device routes (check_asv_routes)."""
     from savont_tpu_torch.ops.align_torch import PAYLOAD_BYTES
 
     kern = operon_kernels(int32_ops_per_s)
@@ -1905,7 +2024,7 @@ def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
                                  SW_KERNELS + ("split_kmers",))):
         r = cli_asv(d / tag, fq, "--rrna-operon", *extra)
         r["n_asvs"] = held(d / tag, tpl, DIGESTS_OPERON, r, kernels)
-        check_operon_routes(tag, r)
+        check_asv_routes(tag, r, N_READS_OPERON)
         s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
         cut = [n * lq * OPERON_BAND for n, lq in zip(s4["launch_jobs"], s4["launch_lq"])]
         wb = walk_warp_bytes(OPERON_BAND, s4["ops_max"])
@@ -1929,6 +2048,178 @@ def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
         runs[tag] = r
     log(f"  card: {nvidia_smi_line()}")
     return {"kernels": kern, "runs": runs}
+
+
+@contextmanager
+def stage7_launch_kept(kept: list):
+    """Inside the block, the stage-7 route's first launch of kernel 1 that
+    carries a full PAIRS_PER_LAUNCH jobs keeps its inputs (q, t, lo, tlens)
+    and band in `kept`; the launch itself is the route's, counted once by
+    the wrapper as always."""
+    from savont_tpu_torch.ops.align_torch import PAIRS_PER_LAUNCH
+    from savont_tpu_torch.parallel import mesh
+
+    real = mesh.sw_forward
+
+    def keep(q, t, lo, tl, band, **kw):
+        if not kept and not kw and q.shape[0] == PAIRS_PER_LAUNCH:
+            kept.append(((q, t, lo, tl), band))
+        return real(q, t, lo, tl, band, **kw)
+
+    mesh.sw_forward = keep
+    try:
+        yield kept
+    finally:
+        mesh.sw_forward = real
+
+
+def scale_nm_kernel(kept: list, int32_ops_per_s: float) -> dict:
+    """Kernel 1 (NM mode) on one full stage-7 launch of the scale sample
+    (stage7_launch_kept): against its plain version on the card (tolerance
+    0), timed as QUEUED_RUNS launches queued back to back and one alone, the
+    plain version once, with its bound (sw_bounds)."""
+    import torch
+
+    from savont_tpu_torch.ops.align_torch import sw_forward, sw_forward_reference
+    from savont_tpu_torch.probes.roofline import QUEUED_RUNS, launch_ms
+
+    if not kept:
+        raise AssertionError("stage 7 made no launch of PAIRS_PER_LAUNCH jobs on the scale sample")
+    (x, band), = kept
+    err = max_abs_diff([(sw_forward(*x, band), sw_forward_reference(*x, band))])
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"kernel 1 (NM) differs from its plain version on a full stage-7 "
+                             f"launch of the scale sample by {err}")
+    plain_ms = cuda_ms(lambda: sw_forward_reference(*x, band), 1, warm_up=False)
+    ms = launch_ms(lambda: sw_forward(*x, band), runs=QUEUED_RUNS)
+    single = launch_ms(lambda: sw_forward(*x, band))
+    B, Lq = x[0].shape
+    shape = {"B": B, "Lq": Lq, "Lt": int(x[1].shape[1]), "band": band,
+             "walk_steps": 0, "walk_max_steps": 0, "walk_rows": 0}
+    b = sw_bounds(shape, int32_ops_per_s)["sw_forward_nm"]
+    out = {"max_abs_err": err, "ms": ms, "single_ms": single, "plain_ms": plain_ms,
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "shape": {k: shape[k] for k in ("B", "Lq", "Lt", "band")}}
+    log(f"  sw_forward_nm on a full stage-7 launch of the scale sample ({B} jobs, Lq {Lq}, band "
+        f"{band}, {b['cells']} cells): == plain (exact); {ms:.4f} ms queued ({QUEUED_RUNS} "
+        f"launches), {single:.4f} ms single, {100 * b['bound_ms'] / ms:.1f}% of its "
+        f"{b['bound_ms']:.4f} ms bound ({b['bound_by']}); plain {plain_ms:.1f} ms; "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def scale_phase(work: Path, int32_ops_per_s: float) -> dict:
+    """Phase "scale": one PromethION 16S barcode's scale.  scale_sample's
+    100,000 reads of 48 templates through `asv` on the card, on the default
+    routes and with --stage1-backend mesh, each held to DIGESTS_SCALE, NM=0
+    for all 48 ASVs, its kernels launched, no plain version, and its device
+    routes (check_asv_routes: stages 4 and 7 in two launches or more);
+    then build_emu_slice of the 48 templates at SCALE_DB_REFS references,
+    `classify` of the scale ASVs and of write_hard_asvs' ASVs and `sintax`
+    of the scale ASVs, held to DIGESTS_SCALE_CLASSIFICATION, sintax over at
+    least ceil(SCALE_DB_REFS / CHUNK_ROWS) chunks of every reference; then
+    kernel 1 (NM) on a full stage-7 launch of the sample (scale_nm_kernel)
+    and kernel 3 on the scale ASVs' pairs, two pair tiles, against the
+    first CHUNK_ROWS references (sintax_cell)."""
+    import math
+
+    import torch
+
+    from savont_tpu_torch.db.synth import build_emu_slice
+    from savont_tpu_torch.pipeline.sintax import CHUNK_ROWS
+
+    t_phase = time.perf_counter()
+    d = work / "scale"
+    d.mkdir()
+    fq, tpl = d / "reads.fq.gz", d / "templates.fa"
+    t0 = time.perf_counter()
+    scale_sample(fq, tpl)
+    log(f"scale sample: {N_READS_SCALE} reads of {N_TEMPLATES_SCALE} templates, "
+        f"{time.perf_counter() - t0:.2f} s to draw and write")
+    runs, kept = {}, []
+    for tag, extra, kernels in (("asv", (), SW_KERNELS),
+                                ("stage1_mesh", ("--stage1-backend", "mesh"),
+                                 SW_KERNELS + ("split_kmers",))):
+        torch.cuda.reset_peak_memory_stats()
+        # kernel 1 is timed below on a stage-7 launch kept from the mesh
+        # run, whose peak memory is stage 1's count, long before stage 7
+        with stage7_launch_kept(kept) if extra else nullcontext():
+            r = cli_asv(d / tag, fq, *extra)
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        r["n_asvs"] = held(d / tag, tpl, DIGESTS_SCALE, r, kernels)
+        if r["n_asvs"] != N_TEMPLATES_SCALE:
+            raise AssertionError(f"scale {tag}: {r['n_asvs']} ASVs, not {N_TEMPLATES_SCALE}")
+        check_asv_routes(tag, r, N_READS_SCALE, min_launches=2)
+        s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
+        log(f"scale {tag} (asv{' ' + ' '.join(extra) if extra else ''}): {N_READS_SCALE} reads, "
+            f"{r['n_asvs']} ASVs all NM=0, outputs equal DIGESTS_SCALE; wall {r['wall_s']:.3f} s "
+            f"(kernel build excluded); stage seconds {r['stage_s']}; torch.cuda."
+            f"max_memory_allocated {r['max_memory_allocated']} B")
+        for name, st in (("stage 4", s4), ("stage 7", s7)):
+            log(f"  {name} route {st['seconds']:.4f} s, kernels {st['kernel_ms']:.3f} device ms; "
+                f"{st['jobs']} of {st['planned']} planned jobs in {len(st['launch_jobs'])} "
+                f"launches (jobs {st['launch_jobs']}, padded Lq {st['launch_lq']})")
+        log(f"  stage 4: {s4['overflow']} pairs overflowed kernel 2, ops_max {s4['ops_max']}; "
+            f"stage 7: EM {s7['em_iters']} iterations, max |host - device| "
+            f"{s7['em_max_abs_diff']:.3e} (tolerance {EM_TOLERANCE})")
+        log(f"  launches {r['launches']}; per-job routes (stage-4 votes, stages 5-6) "
+            f"{r['per_job_route_s']}" + (f"; stage 1's count {json.dumps(r['stage1_count'])}"
+                                         if r["stage1_count"] else ""))
+        runs[tag] = r
+    phase_done("phase scale, asv")
+
+    t0 = time.perf_counter()
+    build_emu_slice(tpl, d / "db", n_refs=SCALE_DB_REFS, seed=DB_SEED, device="cuda")
+    build_s = time.perf_counter() - t0
+    db_dir = d / "db" / "emu"
+    log(f"scale database: build_emu_slice of the {N_TEMPLATES_SCALE} templates, {SCALE_DB_REFS} "
+        f"references, {build_s:.2f} s")
+    write_hard_asvs(db_dir / "species_taxid.fasta", d / "hard")
+    cls = {"build_s": build_s,
+           "classify_asv": cli_classify("scale ASVs", d / "asv", db_dir),
+           "classify_hard": cli_classify(f"{N_HARD} hard ASVs of the scale database", d / "hard",
+                                         db_dir)}
+    r = cli_counted("scale sintax", "sintax", "-i", str(d / "asv"), "-o", str(d / "sintax"), "-d",
+                    str(db_dir), "--device", "cuda")
+    sx, n_launch = r["sintax"], r["sintax_launches"]["sintax_scores"]
+    if sx["refs"] != SCALE_DB_REFS or n_launch < math.ceil(SCALE_DB_REFS / CHUNK_ROWS):
+        raise AssertionError(f"scale sintax: {sx['refs']} references in {n_launch} launches of "
+                             f"kernel 3, not {SCALE_DB_REFS} in "
+                             f"{math.ceil(SCALE_DB_REFS / CHUNK_ROWS)}: {r}")
+    log(f"scale sintax: {sx['refs']} references in {n_launch} launches of kernel 3 (chunks of "
+        f"{CHUNK_ROWS}); route {sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it extracting the "
+        f"references' k-mers on the host) of {r['wall_s']:.3f} s wall, kernel 3 "
+        f"{sx['kernel_ms']:.3f} device ms")
+    cls["sintax"] = r
+    got = {rel: hashlib.sha256((d / rel).read_bytes()).hexdigest()
+           for rel in DIGESTS_SCALE_CLASSIFICATION}
+    if got != DIGESTS_SCALE_CLASSIFICATION:
+        raise AssertionError(f"scale classification outputs differ from the pinned digests of the "
+                             f"host runs: {got}")
+    log(f"scale classification outputs ({len(got)} files: DB, classify x 2, sintax) equal the "
+        f"host runs' pinned digests")
+    phase_done("phase scale, classification")
+
+    k1 = scale_nm_kernel(kept, int32_ops_per_s)
+    k3 = sintax_cell(d / "asv", db_dir / "species_taxid.fasta")
+    P = k3["shape"]["P"]
+    if not SINTAX_PAIR_TILE < P <= 2 * SINTAX_PAIR_TILE:
+        raise AssertionError(f"scale sintax: {P} pairs do not span two of kernel 3's pair tiles")
+    seconds = time.perf_counter() - t_phase
+    log(f"scale phase: {seconds:.1f} s; card: {nvidia_smi_line()}")
+    return {"runs": runs, "classification": cls, "sw_forward_nm": k1, "sintax_scores": k3,
+            "seconds": seconds}
+
+
+def scale_alone(work: Path, int32_ops_per_s: float = 32.6e12) -> dict:
+    """The scale phase alone, to iterate on it: the kernels built, then the
+    phase in `work`, its bounds at `int32_ops_per_s` (phase 4 measures the
+    rate; 32.6 T int32 ops/s is what it read on an H100 at 700 W)."""
+    from savont_tpu_torch.ops.build import build_kernels
+
+    build_kernels()
+    return scale_phase(work, int32_ops_per_s)
 
 
 def free_port() -> int:
@@ -2399,6 +2690,8 @@ def main() -> int:
         phase_done("phase 7")
         op = operon_phase(work, roof["int32_tops"] * 1e12)
         phase_done("phase operon")
+        sc = scale_phase(work, roof["int32_tops"] * 1e12)
+        phase_done("phase scale")
         ranks_phase(work, mp, cls)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2426,7 +2719,9 @@ def main() -> int:
             entry = {"launches": cls["sintax"]["sintax_launches"]["sintax_scores"],
                      **{k: k3["mesh"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms", "single_ms")},
-                     "shapes": k3}
+                     "shapes": k3,
+                     "scale": {"launches": sc["classification"]["sintax"]["sintax_launches"][name],
+                               **sc[name]}}
         elif name in ("split_kmers", "syncmers"):
             # launches: the asv --stage1-backend mesh run's, 0 for kernel 5,
             # which is on no path (as in the JAX package); the kernel cell's
@@ -2450,6 +2745,10 @@ def main() -> int:
                                    for k in ("max_abs_err", "ms", "single_ms", "plain_ms",
                                              "bound_ms", "bound_by")},
                                 "shape": op["kernels"]["shape"]}}
+            if name == "sw_forward_nm":
+                # the scale phase's full stage-7 launch, with the launches
+                # of its default-route run
+                entry["scale"] = {"launches": sc["runs"]["asv"]["launches"][name], **sc[name]}
         # no single PyTorch call computes a banded Smith-Waterman, its
         # traceback walk, or a dependent max/add chain; the probes time the
         # one call that computes their function where there is one
@@ -2464,6 +2763,8 @@ def main() -> int:
         name: {**{k: v for k, v in res_128[name].items() if k.endswith("_ms") or k == "ms"}, **b}
         for name, b in bounds_128.items()}) + f" at {json.dumps(res_128['shape'])}")
     log("kernels 1 and 2 at operon shapes: " + json.dumps(op["kernels"]))
+    log("kernels 1 (NM) and 3 at the scale phase's shapes: " + json.dumps(
+        {name: sc[name] for name in ("sw_forward_nm", "sintax_scores")}))
     log(nvidia_smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,11 +8,23 @@ plan on the device (ops/align_torch.plan_tensors) and keep what follows the
 alignment on the device too:
 
   stage 4  kernel 1 (payload mode) + kernel 2 + the count-matrix scatter
-           (ops/pileup_torch), accumulated across launches, one fetch at
-           the end;
+           (ops/pileup_torch), the counts accumulated across launches and
+           fetched once at the end;
   stage 7  kernel 1 (NM mode), the per-(read, ASV) winner and tie-set
            closure, and the EM fixed point in float32 (ops/em.
            em_abundances_torch).
+
+Neither route is one fetch from end to end: the host reads device values,
+and so waits for the device, at these points.  Each launch of either route
+waits for its padded query length (int(lens.max()) in stage 4's loop and in
+ops/align_torch.plan_tensors) and for kernel 1's input check
+(_check_forward_inputs: two any() over lo).  A stage-4 launch also waits in
+ops/pileup_torch.sw_pileup_counts for the pair winners' count
+(pair_winners), kernel 2's input check (walk_rle), the scatter's largest
+run count (add_pileup_counts), the two torch.nonzero of the rows it counts
+and of the overflow rows, and the overflow list (.tolist() below).  Stage 7
+waits at the tie sets' segment counts (int(grp.max()), int(rd.max())), once
+an EM iteration (ops/em.py), and at the fetch of (score, nm).
 
 The reference packs (rows, slots) panels with empty slots, a shape its
 static-shape compiler needs; here the jobs stay flat rows with an owner
@@ -295,7 +307,7 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
     stats["em_iters"] = em_stats.get("iters", 0)
 
     if nm_vals is None:
-        fetched = torch.stack([score, nm]).cpu().numpy()  # one fetch
+        fetched = torch.stack([score, nm]).cpu().numpy()  # the result's fetch
         win = _winners(len(qi), owner_j, fetched[0])
         nm_vals = np.where(win >= 0, fetched[1][win], -1).astype(np.int64)
     return nm_vals, abund.cpu().numpy(), count
@@ -336,7 +348,8 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
     (highest score, earliest plan job), the same count-matrix semantics.
     The alignment, the traceback walk and the scatter run on the device in
     launches cut by payload bytes, with the counts accumulated there and
-    fetched once.  Returns the PileupMatrix list and sets every consensus'
+    fetched once; each launch still waits for the device where the module
+    docstring says.  Returns the PileupMatrix list and sets every consensus'
     hp_lengths, as the host route does."""
     t_start = time.perf_counter()
     stats = ROUTE_STATS["stage4"]
@@ -344,7 +357,7 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
     stats["overflow"] = 0
     with kernel_events() as events:
         pms = _stage4_pileups(twin_reads, consensuses, args, stats)
-    stats["kernel_ms"] += events_ms(events)  # after the route's one fetch: no wait
+    stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
     stats["seconds"] += time.perf_counter() - t_start
     return pms
 
@@ -445,7 +458,7 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
             all_reduce_(host, "sum")
             ends = np.cumsum([len(v) for v in counts.values()])
             counts = dict(zip(counts, np.split(host.numpy(), ends[:-1])))
-        for k, v in acc.items():  # the one fetch
+        for k, v in acc.items():  # the counts' one fetch
             counts[k] += v.cpu().numpy()
 
     pms = []

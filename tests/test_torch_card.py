@@ -1,17 +1,18 @@
 """On the card: the port's `asv --device cuda`, with its device routes of
 stages 4 and 7 ("mesh", the default) and with its per-job routes ("perjob":
 --stage4-backend host --stage7-backend host), against the JAX package's host
-run_cluster on chip_smoke.py's 5,000 reads ("main"), and the same under the
+run_cluster on chip_smoke.py's 5,000 reads ("main"), the same under the
 rRNA-operon preset (--rrna-operon / rrna_operon=True) on its 10,000 operon
-reads ("operon"), in turns (ORDER below) after one untimed run of each, all
-in one process.  Every run's outputs must equal
+reads ("operon"), and on its scale phase's 100,000 reads of 48 templates
+("scale"), in turns (ORDER below) after one untimed run of each, all in one
+process.  Every run's outputs must equal
 the first host run's, byte for byte; the wall time of each run, the port's
 seconds by stage, inside its device routes (with the device milliseconds of
 kernels 1 and 2 in each) and inside its per-job DP routes are printed as one
 JSON line.
 
 Skips without a card.  On the card (no jax there, so without this
-directory's conftest; `-k operon` or `-k main` for one sample):
+directory's conftest; `-k main`, `-k operon` or `-k scale` for one sample):
     python -m pytest --noconftest -s -q tests/test_torch_card.py
 """
 import json
@@ -35,7 +36,7 @@ ORDER = ("host", "mesh", "perjob", "perjob", "mesh", "host", "host", "mesh", "pe
 ROUTES = {"mesh": [], "perjob": ["--stage4-backend", "host", "--stage7-backend", "host"]}
 
 
-@pytest.mark.parametrize("sample", ["main", "operon"])
+@pytest.mark.parametrize("sample", ["main", "operon", "scale"])
 def test_card_run_matches_host_run_in_turns(tmp_path, sample):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -43,6 +44,8 @@ def test_card_run_matches_host_run_in_turns(tmp_path, sample):
     operon = sample == "operon"
     if operon:
         chip_smoke.operon_sample(fq, tpl)
+    elif sample == "scale":
+        chip_smoke.scale_sample(fq, tpl)
     else:
         chip_smoke.write_reads(fq, tpl, chip_smoke.main_path_rng())
     preset = ["--rrna-operon"] if operon else []

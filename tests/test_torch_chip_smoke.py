@@ -209,6 +209,26 @@ def test_operon_phase_stands_between_phases_7_and_8():
     assert tail[2].startswith('log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,')
 
 
+def test_scale_phase_stands_between_operon_and_phase_8():
+    """The docstring names the scale phase between the operon phase and
+    phase 8, main() runs it there, kernel 1 (NM) and kernel 3 carry a scale
+    sub-object in the kernels line, scale_alone runs it alone, and the last
+    two lines stay the kernels line and the result line."""
+    import inspect
+
+    doc = chip_smoke.__doc__
+    assert doc.index("operon       -") < doc.index("scale        -") < doc.index("8. ranks")
+    src = inspect.getsource(chip_smoke.main)
+    assert (src.index("operon_phase(") < src.index("scale_phase(") < src.index("ranks_phase("))
+    assert 'entry["scale"] = {"launches": sc["runs"]["asv"]["launches"][name], **sc[name]}' in src
+    assert '"scale": {"launches": sc["classification"]["sintax"]["sintax_launches"][name],' in src
+    assert "scale_phase(work, int32_ops_per_s)" in inspect.getsource(chip_smoke.scale_alone)
+    tail = [l.strip() for l in src.splitlines() if l.strip().startswith("log(")][-3:]
+    assert tail[0] == "log(nvidia_smi_line())"
+    assert tail[1] == 'log(json.dumps({"kernels": kernels}))'
+    assert tail[2].startswith('log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,')
+
+
 def test_sw_bounds_from_shapes():
     shape = {"B": 2304, "Lq": 1450, "Lt": 1450, "band": 48, "walk_steps": 2304 * 1450,
              "walk_max_steps": 1460, "walk_rows": 2304 * 1450}
