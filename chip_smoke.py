@@ -1155,9 +1155,9 @@ def cli_asv(out_dir: Path, fq: Path, *args: str) -> dict:
     """One `asv` through the CLI on the card into out_dir, with every count
     set to 0 just before it; what it counted, read just after: launches and
     plain-version calls of kernels 1, 2 and 4, the device routes' stats, the
-    per-job routes' seconds and the stage seconds."""
+    per-job routes' seconds (the stages' "dp" parts) and the stage seconds."""
     from savont_tpu_torch import cli
-    from savont_tpu_torch.ops import align_batch, align_torch
+    from savont_tpu_torch.ops import align_torch
     from savont_tpu_torch.ops import kmers_torch as kt
     from savont_tpu_torch.parallel.mesh import ROUTE_STATS, reset_route_stats
     from savont_tpu_torch.pipeline import stage1_kmers as s1
@@ -1167,8 +1167,6 @@ def cli_asv(out_dir: Path, fq: Path, *args: str) -> dict:
     kt.reset_counters()
     reset_route_stats()
     s1.reset_count_stats()
-    for k in align_batch.ROUTE_SECONDS:
-        align_batch.ROUTE_SECONDS[k] = 0.0
     t0 = time.perf_counter()
     rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out_dir),
                    "--device", "cuda", "-t", "4", *args])
@@ -1178,7 +1176,7 @@ def cli_asv(out_dir: Path, fq: Path, *args: str) -> dict:
     return {"wall_s": wall, "launches": {**align_torch.LAUNCHES, **kt.LAUNCHES},
             "plain_calls": {**align_torch.REFERENCE_CALLS, **kt.REFERENCE_CALLS},
             "routes": {k: dict(v) for k, v in ROUTE_STATS.items()},
-            "per_job_route_s": dict(align_batch.ROUTE_SECONDS),
+            "per_job_route_s": {k: v for k, v in STAGE_SECONDS.items() if k.endswith(".dp")},
             "stage_s": {k: round(v, 3) for k, v in STAGE_SECONDS.items()},
             "stage1_count": {k: v for k, v in s1.COUNT_STATS.items() if v}}
 

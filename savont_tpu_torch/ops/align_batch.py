@@ -18,13 +18,13 @@ oracle); no consumer here takes it.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tracing import part, span
 from .align import (
     Mapping,
     TargetIndex,
@@ -548,47 +548,39 @@ def plan_job(plan: tuple, k: int) -> AlignJob:
     )
 
 
-# wall seconds spent inside the routes (packing, kernels, copies back to
-# the host): what the card path costs of a whole run
-ROUTE_SECONDS = {"run_jobs": 0.0, "run_jobs_nm": 0.0}
-
-
 def run_jobs(jobs: list[AlignJob], band: int | None = None, *, device) -> list[tuple | None]:
     """Per job (score, q0, q1, t0, t1, cigar_u32, nm) or None, on `device`:
-    kernel 1 (payload mode) + kernel 2 (stage 4-6 CIGAR consumers)."""
+    kernel 1 (payload mode) + kernel 2 (stage 4-6 CIGAR consumers).  Its
+    seconds (packing, kernels, fetch) are the part "dp" (tracing.part)."""
     band = resolve_band(band)
     if not jobs:
         return []
-    t0 = time.perf_counter()
-    try:
+    with part("dp"):
         return sw_traceback_jobs(jobs, band, device=device)
-    finally:
-        ROUTE_SECONDS["run_jobs"] += time.perf_counter() - t0
 
 
 def run_jobs_nm(jobs: list[AlignJob], band: int | None = None, *, device) -> list[tuple | None]:
     """Per job (score, 0, q_end, 0, t_end, [], nm) or None, on `device`:
     kernel 1 (NM mode).  The starts are 0, as in the Pallas NM route of the
-    JAX package (stage 7 reads only nm)."""
+    JAX package (stage 7 reads only nm).  Part "dp", as run_jobs."""
     band = resolve_band(band)
     if not jobs:
         return []
-    t0 = time.perf_counter()
-    try:
+    with part("dp"):
         return sw_forward_jobs(jobs, band, device)
-    finally:
-        ROUTE_SECONDS["run_jobs_nm"] += time.perf_counter() - t0
 
 
 def _best_per_pair(n_pairs: int, owner: list[int], jobs: list[AlignJob], raw) -> list[Mapping | None]:
-    """Per pair the highest-scoring job's Mapping (the first job on ties)."""
+    """Per pair the highest-scoring job's Mapping (the first job on ties):
+    the part "map"."""
     best: list[Mapping | None] = [None] * n_pairs
-    for o, job, r in zip(owner, jobs, raw):
-        if r is None:
-            continue
-        (m,) = _jobs_to_mappings([job], [r])
-        if best[o] is None or m.score > best[o].score:
-            best[o] = m
+    with part("map"):
+        for o, job, r in zip(owner, jobs, raw):
+            if r is None:
+                continue
+            (m,) = _jobs_to_mappings([job], [r])
+            if best[o] is None or m.score > best[o].score:
+                best[o] = m
     return best
 
 
@@ -669,14 +661,13 @@ def align_pairs_nm_indexed(
     coords=True) in every field classify reads, and on every pair in score,
     NM and ends.  The pairs are independent, so one call over many groups
     gives what one call per group gives."""
-    t_start = time.perf_counter()
     stats = CLASSIFY_STATS
     stats["calls"] += 1
     stats["pairs"] += len(qi)
-    with kernel_events() as events:
-        out = _classify_route(queries, targets, qi, ti, band, device, groups, stats)
-    stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
-    stats["seconds"] += time.perf_counter() - t_start
+    with span(None, stats, "seconds"):
+        with kernel_events() as events:
+            out = _classify_route(queries, targets, qi, ti, band, device, groups, stats)
+        stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
     return out
 
 
@@ -692,11 +683,9 @@ def classify_nm_slabs(queries, targets, qi, ti, band: int, dev, stats=None):
         uq, qi2 = np.unique(qi[s:e], return_inverse=True)
         ut, ti2 = np.unique(ti[s:e], return_inverse=True)
         t_sub = [targets[i] for i in ut.tolist()]
-        t_plan = time.perf_counter()
-        plan = _plan_soa_indexed([queries[i] for i in uq.tolist()], t_sub,
-                                 qi2.astype(np.int64), ti2.astype(np.int64), band)
-        if stats is not None:
-            stats["plan_s"] += time.perf_counter() - t_plan
+        with span(None, {} if stats is None else stats, "plan_s"):
+            plan = _plan_soa_indexed([queries[i] for i in uq.tolist()], t_sub,
+                                     qi2.astype(np.int64), ti2.astype(np.int64), band)
         if plan is None:
             raise ValueError("classify route: the pairs lie outside the flat planner's key "
                              "widths (a sequence of 16 kb or more), or its native library "
@@ -835,57 +824,61 @@ def map_batch(
 
     Returns per query a hit list sorted like align.map_query (best first,
     one per target, mapq>0 iff unique best)."""
-    all_jobs, job_owner = plan_jobs_batch(
-        index, [bytes(q) if isinstance(q, (bytes, bytearray)) else np.asarray(q, dtype=np.uint8).tobytes() for q in queries],
-        band=band, min_anchors=min_anchors, no_diag=no_diag,
-    )
+    with part("plan"):
+        all_jobs, job_owner = plan_jobs_batch(
+            index, [bytes(q) if isinstance(q, (bytes, bytearray)) else np.asarray(q, dtype=np.uint8).tobytes() for q in queries],
+            band=band, min_anchors=min_anchors, no_diag=no_diag,
+        )
     raw = run_jobs(all_jobs, band=band, device=device)
 
-    per_query: dict[int, list[tuple[AlignJob, tuple]]] = {}
-    for owner, job, r in zip(job_owner, all_jobs, raw):
-        if r is not None:
-            per_query.setdefault(owner, []).append((job, r))
-
     results: list[list[Mapping]] = []
-    for qi in range(len(queries)):
-        pairs = per_query.get(qi, [])
-        best_by_target: dict[int, Mapping] = {}
-        for job, r in pairs:
-            (m,) = _jobs_to_mappings([job], [r]) or (None,)
-            if m is None:
-                continue
-            prev = best_by_target.get(m.target_id)
-            if prev is None or m.score > prev.score:
-                best_by_target[m.target_id] = m
-        hits = sorted(best_by_target.values(), key=lambda m: (-m.score, m.target_id))
-        for i, m in enumerate(hits):
-            m.is_primary = i == 0
-            m.mapq = 60 if (i == 0 and (len(hits) < 2 or hits[1].score < m.score)) else 0
-        if max_hits is not None:
-            hits = hits[:max_hits]
-        results.append(hits)
+    with part("map"):
+        per_query: dict[int, list[tuple[AlignJob, tuple]]] = {}
+        for owner, job, r in zip(job_owner, all_jobs, raw):
+            if r is not None:
+                per_query.setdefault(owner, []).append((job, r))
+
+        for qi in range(len(queries)):
+            pairs = per_query.get(qi, [])
+            best_by_target: dict[int, Mapping] = {}
+            for job, r in pairs:
+                (m,) = _jobs_to_mappings([job], [r]) or (None,)
+                if m is None:
+                    continue
+                prev = best_by_target.get(m.target_id)
+                if prev is None or m.score > prev.score:
+                    best_by_target[m.target_id] = m
+            hits = sorted(best_by_target.values(), key=lambda m: (-m.score, m.target_id))
+            for i, m in enumerate(hits):
+                m.is_primary = i == 0
+                m.mapq = 60 if (i == 0 and (len(hits) < 2 or hits[1].score < m.score)) else 0
+            if max_hits is not None:
+                hits = hits[:max_hits]
+            results.append(hits)
     return results
 
 
 def _plan_pairs(pairs: list[tuple[bytes, bytes]], band: int) -> tuple[list[AlignJob], list[int]]:
     """Plan independent pairs: group queries by unique target so each target
-    is indexed once and its queries planned in one batch."""
-    groups: dict[bytes, tuple[TargetIndex, list[int]]] = {}
-    for i, (qa, ta) in enumerate(pairs):
-        tb = bytes(ta) if isinstance(ta, (bytes, bytearray)) else np.asarray(ta, dtype=np.uint8).tobytes()
-        g = groups.get(tb)
-        if g is None:
-            g = (TargetIndex([tb]), [])
-            groups[tb] = g
-        g[1].append(i)
-    all_jobs: list[AlignJob] = []
-    owner: list[int] = []
-    for idx, pair_ids in groups.values():
-        qbytes = [
-            bytes(pairs[i][0]) if isinstance(pairs[i][0], (bytes, bytearray)) else np.asarray(pairs[i][0], dtype=np.uint8).tobytes()
-            for i in pair_ids
-        ]
-        jobs, owners_local = plan_jobs_batch(idx, qbytes, band=band, min_anchors=2)
-        all_jobs.extend(jobs)
-        owner.extend(pair_ids[o] for o in owners_local)
+    is indexed once and its queries planned in one batch.  The part
+    "plan"."""
+    with part("plan"):
+        groups: dict[bytes, tuple[TargetIndex, list[int]]] = {}
+        for i, (qa, ta) in enumerate(pairs):
+            tb = bytes(ta) if isinstance(ta, (bytes, bytearray)) else np.asarray(ta, dtype=np.uint8).tobytes()
+            g = groups.get(tb)
+            if g is None:
+                g = (TargetIndex([tb]), [])
+                groups[tb] = g
+            g[1].append(i)
+        all_jobs: list[AlignJob] = []
+        owner: list[int] = []
+        for idx, pair_ids in groups.values():
+            qbytes = [
+                bytes(pairs[i][0]) if isinstance(pairs[i][0], (bytes, bytearray)) else np.asarray(pairs[i][0], dtype=np.uint8).tobytes()
+                for i in pair_ids
+            ]
+            jobs, owners_local = plan_jobs_batch(idx, qbytes, band=band, min_anchors=2)
+            all_jobs.extend(jobs)
+            owner.extend(pair_ids[o] for o in owners_local)
     return all_jobs, owner

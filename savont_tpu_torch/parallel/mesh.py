@@ -65,7 +65,6 @@ default path takes either of these two, as in the reference.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -84,6 +83,7 @@ from ..ops.encode import _RC_TABLE
 from ..ops.host_dp import run_jobs_host
 from ..ops.kmers_torch import BARE, flagged_on_device
 from ..ops.pileup_torch import new_count_buffers, strip_sinks, sw_pileup_counts
+from ..tracing import part, span
 from . import distributed
 from .distributed import all_gather_rows, all_reduce_, all_to_all_rows, my_share
 
@@ -247,13 +247,13 @@ def mesh_stage7_tie_break(
         They reach no output: the emitted depths come from the host float64
         EM, and the caller only logs the difference (em_cross_check).
     """
-    t_start = time.perf_counter()
     stats = ROUTE_STATS["stage7"]
     stats["calls"] += 1
-    with kernel_events() as events:
-        out = _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters, stats)
-    stats["kernel_ms"] += events_ms(events)  # after the route's fetches: no wait
-    stats["seconds"] += time.perf_counter() - t_start
+    with span(None, stats, "seconds"):
+        with kernel_events() as events:
+            out = _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters,
+                                    stats)
+        stats["kernel_ms"] += events_ms(events)  # after the route's fetches: no wait
     return out
 
 
@@ -264,7 +264,8 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
     dev = resolve_device(device)
     qi = np.asarray(qi, dtype=np.int64)
     ca = np.asarray(ca, dtype=np.int64)
-    plan = _plan_soa_indexed(read_seqs, asv_seqs, qi, ca, band) if len(qi) else "empty"
+    with part("plan"):
+        plan = _plan_soa_indexed(read_seqs, asv_seqs, qi, ca, band) if len(qi) else "empty"
 
     nm_vals = None
     if plan is None:
@@ -283,34 +284,40 @@ def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iter
         score = nm = torch.zeros(0, dtype=torch.int32, device=dev)
     else:
         owner_j, q_lens_j, band = plan[0], plan[6], plan[13]
-        dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
-        # this rank's jobs: a contiguous range of whole pairs, balanced by
-        # cells (all of them without a process group)
-        lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
-        stats["planned"] += len(owner_j)
-        out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
-        for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
-            sel_t = torch.from_numpy(sel).to(dev)
-            stats["launch_jobs"].append(len(sel))
-            stats["launch_lq"].append(int(q_lens_j[lo + sel].max()))
-            out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
-        # every rank's (score, nm) in plan order
-        out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
-        score, nm = out[:, 0].contiguous(), out[:, 1].contiguous()
+        with part("upload"):
+            dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
+        with part("launch"):
+            # this rank's jobs: a contiguous range of whole pairs, balanced
+            # by cells (all of them without a process group)
+            lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
+            stats["planned"] += len(owner_j)
+            out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
+            for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
+                sel_t = torch.from_numpy(sel).to(dev)
+                stats["launch_jobs"].append(len(sel))
+                stats["launch_lq"].append(int(q_lens_j[lo + sel].max()))
+                out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
+            # every rank's (score, nm) in plan order
+            out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
+            score, nm = out[:, 0].contiguous(), out[:, 1].contiguous()
         stats["jobs"] += hi - lo
 
-    row_read = torch.from_numpy(qi[owner_j]).to(dev)
-    row_asv = torch.from_numpy(ca[owner_j]).to(dev)
-    in_tie = stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
-    em_stats: dict = {}
-    abund, count = stage7_em(in_tie, row_read, row_asv, n_asvs, em_iters, stats=em_stats)
+    with part("upload"):
+        row_read = torch.from_numpy(qi[owner_j]).to(dev)
+        row_asv = torch.from_numpy(ca[owner_j]).to(dev)
+    with part("em"):
+        in_tie = stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
+        em_stats: dict = {}
+        abund, count = stage7_em(in_tie, row_read, row_asv, n_asvs, em_iters, stats=em_stats)
     stats["em_iters"] = em_stats.get("iters", 0)
 
-    if nm_vals is None:
-        fetched = torch.stack([score, nm]).cpu().numpy()  # the result's fetch
-        win = _winners(len(qi), owner_j, fetched[0])
-        nm_vals = np.where(win >= 0, fetched[1][win], -1).astype(np.int64)
-    return nm_vals, abund.cpu().numpy(), count
+    with part("fetch"):
+        if nm_vals is None:
+            fetched = torch.stack([score, nm]).cpu().numpy()  # the result's fetch
+            win = _winners(len(qi), owner_j, fetched[0])
+            nm_vals = np.where(win >= 0, fetched[1][win], -1).astype(np.int64)
+        abund = abund.cpu().numpy()
+    return nm_vals, abund, count
 
 
 # ── stage 4: pileup count matrices ──────────────────────────────────────────
@@ -351,14 +358,13 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
     fetched once; each launch still waits for the device where the module
     docstring says.  Returns the PileupMatrix list and sets every consensus'
     hp_lengths, as the host route does."""
-    t_start = time.perf_counter()
     stats = ROUTE_STATS["stage4"]
     stats["calls"] += 1
     stats["overflow"] = 0
-    with kernel_events() as events:
-        pms = _stage4_pileups(twin_reads, consensuses, args, stats)
-    stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
-    stats["seconds"] += time.perf_counter() - t_start
+    with span(None, stats, "seconds"):
+        with kernel_events() as events:
+            pms = _stage4_pileups(twin_reads, consensuses, args, stats)
+        stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
     return pms
 
 
@@ -371,17 +377,17 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
     dev = resolve_device(args.device)
     use_hp = bool(args.use_hpc)
 
-    owners, payload = _pileup_payload(twin_reads, consensuses, args)
+    with part("plan"):  # the pairs' payload, then the flat plan
+        owners, payload = _pileup_payload(twin_reads, consensuses, args)
+        tgt_pool_bytes = [cons.sequence.tobytes() for cons in consensuses]
+        plan = _plan_soa_indexed(
+            [p[0] for p in payload], tgt_pool_bytes,
+            np.arange(len(payload), dtype=np.int64), np.asarray(owners, dtype=np.int64), band,
+        ) if payload else "empty"
     L_flat = np.fromiter((len(c.sequence) for c in consensuses), np.int64, len(consensuses))
     roff = np.zeros(len(consensuses) + 1, dtype=np.int64)
     np.cumsum(L_flat, out=roff[1:])
     total_L = max(int(roff[-1]), 1)
-
-    tgt_pool_bytes = [cons.sequence.tobytes() for cons in consensuses]
-    plan = _plan_soa_indexed(
-        [p[0] for p in payload], tgt_pool_bytes,
-        np.arange(len(payload), dtype=np.int64), np.asarray(owners, dtype=np.int64), band,
-    ) if payload else "empty"
     if plan is None:
         # per-job consumer: the same kernels on the same device
         stats["fallbacks"] += 1
@@ -401,65 +407,68 @@ def _stage4_pileups(twin_reads, consensuses, args, stats):
         lo_j, hi_j, _ = my_share(q_lens_j * band, group=owner_j)
         stats["planned"] += len(owner_j)
         stats["jobs"] += hi_j - lo_j
-        dp = plan_to_device(plan, *_build_target_pool(tgt_pool_bytes, ext=True), dev)
+        with part("upload"):
+            dp = plan_to_device(plan, *_build_target_pool(tgt_pool_bytes, ext=True), dev)
 
-        # per-pair pools: the read's bytes, quality levels and clamped
-        # homopolymer run lengths, each uploaded once; a job's oriented rows
-        # are gathered from them on the device (backward for strand -1)
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+            # per-pair pools: the read's bytes, quality levels and clamped
+            # homopolymer run lengths, each uploaded once; a job's oriented rows
+            # are gathered from them on the device (backward for strand -1)
+            def up(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-        p_len = np.fromiter((len(p[0]) for p in payload), np.int64, len(payload))
-        p_off = np.zeros(len(payload) + 1, dtype=np.int64)
-        np.cumsum(p_len, out=p_off[1:])
-        seq_cat = up(np.frombuffer(bytearray(b"".join(p[0] for p in payload)), dtype=np.uint8),
-                     np.uint8)
-        lvl_cat = up(qlevel(np.concatenate([p[1] for p in payload])), np.uint8)
-        hp_cat = (up(np.minimum(np.concatenate([p[2] for p in payload]), 63), np.uint8)
-                  if use_hp else None)
-        lut = up(_EXT_LUT, np.int32)
-        src_off = up(p_off[owner_j], np.int64)
-        rev = up(st_j == -1, bool)
-        off_j = up(roff[tid_j], np.int32)
-        pair_j = up(owner_j, np.int64)
+            p_len = np.fromiter((len(p[0]) for p in payload), np.int64, len(payload))
+            p_off = np.zeros(len(payload) + 1, dtype=np.int64)
+            np.cumsum(p_len, out=p_off[1:])
+            seq_cat = up(np.frombuffer(bytearray(b"".join(p[0] for p in payload)), dtype=np.uint8),
+                         np.uint8)
+            lvl_cat = up(qlevel(np.concatenate([p[1] for p in payload])), np.uint8)
+            hp_cat = (up(np.minimum(np.concatenate([p[2] for p in payload]), 63), np.uint8)
+                      if use_hp else None)
+            lut = up(_EXT_LUT, np.int32)
+            src_off = up(p_off[owner_j], np.int64)
+            rev = up(st_j == -1, bool)
+            off_j = up(roff[tid_j], np.int32)
+            pair_j = up(owner_j, np.int64)
 
-        acc = new_count_buffers(total_L, NQ, use_hp, dev)
-        Lt = dp["t_pool"].shape[1]
-        for sel in length_chunks_lens(q_lens_j[lo_j:hi_j], band, payload=True,
-                                      group=owner_j[lo_j:hi_j]):
-            sel = sel + lo_j
-            sel_t = torch.from_numpy(sel).to(dev)
-            lens = dp["q_lens"][sel_t]
-            Lq = int(lens.max())
-            stats["launch_jobs"].append(len(sel))
-            stats["launch_lq"].append(Lq)
-            so, rv = src_off[sel_t], rev[sel_t]
-            q = lut[rv.long()[:, None], gather_rows(seq_cat, so, lens, Lq, 256, reverse=rv).long()]
-            lvl = gather_rows(lvl_cat, so, lens, Lq, 0, reverse=rv)
-            hp = gather_rows(hp_cat, so, lens, Lq, 0, reverse=rv) if use_hp else lvl
-            q, t, lo, tl = plan_tensors(dp, sel_t, q=q.contiguous())
-            stats["ops_max"] = max(stats["ops_max"], Lq + Lt)
-            out = sw_pileup_counts(
-                q, t, lo, tl, lvl, hp, off_j[sel_t], pair_j[sel_t],
-                total_L, NQ, band, Lq + Lt, use_hp, acc=acc, maxrun=traceback_torch.MAXRUN,
-            )
-            # CIGARs longer than kernel 2's run rows: counted on the host
-            for row in out["overflow"].tolist():
-                _count_on_host(plan, int(sel[row]), band, payload, consensuses, roff, NQ, counts)
-                stats["overflow"] += 1
-        LAUNCHES["walk_overflow"] += stats["overflow"]
-        acc = strip_sinks(acc)
-        if distributed.active():
-            # every rank's counts, device buffers and host overflow counts
-            # alike: integer sums, exact in any order
-            for v in acc.values():
-                all_reduce_(v, "sum")
-            host = torch.from_numpy(np.concatenate(list(counts.values())))
-            all_reduce_(host, "sum")
-            ends = np.cumsum([len(v) for v in counts.values()])
-            counts = dict(zip(counts, np.split(host.numpy(), ends[:-1])))
-        for k, v in acc.items():  # the counts' one fetch
-            counts[k] += v.cpu().numpy()
+            acc = new_count_buffers(total_L, NQ, use_hp, dev)
+        with part("launch"):
+            Lt = dp["t_pool"].shape[1]
+            for sel in length_chunks_lens(q_lens_j[lo_j:hi_j], band, payload=True,
+                                          group=owner_j[lo_j:hi_j]):
+                sel = sel + lo_j
+                sel_t = torch.from_numpy(sel).to(dev)
+                lens = dp["q_lens"][sel_t]
+                Lq = int(lens.max())
+                stats["launch_jobs"].append(len(sel))
+                stats["launch_lq"].append(Lq)
+                so, rv = src_off[sel_t], rev[sel_t]
+                q = lut[rv.long()[:, None], gather_rows(seq_cat, so, lens, Lq, 256, reverse=rv).long()]
+                lvl = gather_rows(lvl_cat, so, lens, Lq, 0, reverse=rv)
+                hp = gather_rows(hp_cat, so, lens, Lq, 0, reverse=rv) if use_hp else lvl
+                q, t, lo, tl = plan_tensors(dp, sel_t, q=q.contiguous())
+                stats["ops_max"] = max(stats["ops_max"], Lq + Lt)
+                out = sw_pileup_counts(
+                    q, t, lo, tl, lvl, hp, off_j[sel_t], pair_j[sel_t],
+                    total_L, NQ, band, Lq + Lt, use_hp, acc=acc, maxrun=traceback_torch.MAXRUN,
+                )
+                # CIGARs longer than kernel 2's run rows: counted on the host
+                for row in out["overflow"].tolist():
+                    _count_on_host(plan, int(sel[row]), band, payload, consensuses, roff, NQ, counts)
+                    stats["overflow"] += 1
+            LAUNCHES["walk_overflow"] += stats["overflow"]
+            acc = strip_sinks(acc)
+            if distributed.active():
+                # every rank's counts, device buffers and host overflow counts
+                # alike: integer sums, exact in any order
+                for v in acc.values():
+                    all_reduce_(v, "sum")
+                host = torch.from_numpy(np.concatenate(list(counts.values())))
+                all_reduce_(host, "sum")
+                ends = np.cumsum([len(v) for v in counts.values()])
+                counts = dict(zip(counts, np.split(host.numpy(), ends[:-1])))
+        with part("fetch"):
+            for k, v in acc.items():  # the counts' one fetch
+                counts[k] += v.cpu().numpy()
 
     pms = []
     for ci, cons in enumerate(consensuses):

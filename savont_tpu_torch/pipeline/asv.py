@@ -11,6 +11,7 @@ from pathlib import Path
 from ..config import ClusterArgs
 from ..constants import ASV_FILE
 from ..device import resolve_device
+from ..tracing import enter_stage, part
 from . import pileup, stage1_kmers, stage23_cluster, stage4_consensus, stage5_merge, stage6_chimera, stage7_em
 from .outputs import (
     sample_names_from_inputs,
@@ -77,7 +78,8 @@ def run_cluster(args: ClusterArgs) -> Path:
 
 # wall seconds of the last run by stage ("1" covers stages 1 and 1.5, "4"
 # the consensus rounds, "4p" the pileups and their analysis, "7" the
-# tie-break, EM and the output files)
+# tie-break, EM and the output files), and by part of a stage
+# ("<stage>.<part>", tracing.part: "1.feed_wait", "4.dp", "7.em", ...)
 STAGE_SECONDS: dict[str, float] = {}
 
 
@@ -85,11 +87,13 @@ _CLOCK: dict = {"stage": None, "t": 0.0}
 
 
 def _mark(stage: str | None) -> None:
-    """Close the running stage's clock and start `stage`'s (None: none)."""
+    """Close the running stage's clock and start `stage`'s (None: none);
+    the parts timed until the next mark are `stage`'s."""
     now = time.perf_counter()
     if _CLOCK["stage"] is not None:
         STAGE_SECONDS[_CLOCK["stage"]] = STAGE_SECONDS.get(_CLOCK["stage"], 0.0) + now - _CLOCK["t"]
     _CLOCK["stage"], _CLOCK["t"] = stage, now
+    enter_stage(STAGE_SECONDS, stage)
 
 
 def _run_cluster_inner(args: ClusterArgs) -> Path:
@@ -134,22 +138,23 @@ def _run_stages(args: ClusterArgs) -> Path:
         t0 = time.time()
         kmers, counts = stage1_kmers.read_to_split_kmers(args)
         log.info("Time elapsed in for counting k-mers is: %.2fs", time.time() - t0)
-        t0 = time.time()
-        blockmer_sorted = None
-        if args.use_blockmers:
-            import numpy as np
+        with part("twin"):  # SNPmers (and blockmers), then stage 1.5's TwinReads
+            t0 = time.time()
+            blockmer_sorted = None
+            if args.use_blockmers:
+                import numpy as np
 
-            blk_kmers, blk_counts = stage1_kmers.read_blockmer_counts(args)
-            blockmer_info = stage1_kmers.get_blockmers(blk_kmers, blk_counts, kmers, counts, args)
-            vals = [v for _, pair, _ in blockmer_info for v in pair]
-            blockmer_sorted = np.unique(np.array(vals, dtype=np.uint64)) if vals else np.zeros(0, np.uint64)
-            log.info("Using blockmers: True (%d biallelic anchors)", len(blockmer_info))
-        kmer_info = stage1_kmers.get_snpmers(kmers, counts, args)
-        log.info("Time elapsed in for parsing snpmers is: %.2fs", time.time() - t0)
-        log_memory_usage("STAGE 1 DONE: Obtained SNPmers")
+                blk_kmers, blk_counts = stage1_kmers.read_blockmer_counts(args)
+                blockmer_info = stage1_kmers.get_blockmers(blk_kmers, blk_counts, kmers, counts, args)
+                vals = [v for _, pair, _ in blockmer_info for v in pair]
+                blockmer_sorted = np.unique(np.array(vals, dtype=np.uint64)) if vals else np.zeros(0, np.uint64)
+                log.info("Using blockmers: True (%d biallelic anchors)", len(blockmer_info))
+            kmer_info = stage1_kmers.get_snpmers(kmers, counts, args)
+            log.info("Time elapsed in for parsing snpmers is: %.2fs", time.time() - t0)
+            log_memory_usage("STAGE 1 DONE: Obtained SNPmers")
 
-        log.info("=== STAGE 1.5: TwinRead construction ===")
-        twin_reads = stage1_kmers.twin_reads_from_files(kmer_info, args, blockmer_sorted)
+            log.info("=== STAGE 1.5: TwinRead construction ===")
+            twin_reads = stage1_kmers.twin_reads_from_files(kmer_info, args, blockmer_sorted)
         n_no_snp = sum(1 for t in twin_reads if len(t.snp_pos) == 0)
         frac_no_snp = n_no_snp / max(len(twin_reads), 1)
         log.info("reads without SNPmers: %.1f%%", frac_no_snp * 100)
@@ -185,8 +190,9 @@ def _run_stages(args: ClusterArgs) -> Path:
     write_consensus_fasta(consensuses, temp_dir / "consensus_sequences.fasta", "initial")
     _mark("4p")
     pileups = pileup.generate_consensus_pileups(twin_reads, consensuses, args)
-    quality_error_map = pileup.estimate_quality_error_rates(pileups, consensuses, 0.1)
-    low_qual = pileup.analyze_pileup_consensuses(pileups, consensuses, quality_error_map, args)
+    with part("analyze"):  # the pileups' error rates and their analysis
+        quality_error_map = pileup.estimate_quality_error_rates(pileups, consensuses, 0.1)
+        low_qual = pileup.analyze_pileup_consensuses(pileups, consensuses, quality_error_map, args)
     log_memory_usage("STAGE 4 DONE: Analyzed pileups")
     for c in consensuses:
         c.decompress()

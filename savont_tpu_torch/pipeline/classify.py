@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -28,6 +27,7 @@ from ..ops.align import _window_minimizers, ascii_to_align_codes
 from ..ops.align_batch import align_pairs_nm_indexed
 from ..ops.em import em_abundances, groups_to_rows
 from ..ops.encode import U64
+from ..tracing import Laps
 
 log = logging.getLogger("savont")
 
@@ -266,14 +266,8 @@ def classify(args: ClassifyArgs, db: tax.Database) -> None:
     # DB load + prefilter + batched alignment.  The minimizer table is
     # cached next to the DB FASTA (the reference caches a .mmi minimap2
     # index the same way, classify.rs:127-145).
-    secs = CLASSIFY_SECONDS
-    t = time.perf_counter()
-
-    def lap(part: str) -> None:
-        nonlocal t
-        now = time.perf_counter()
-        secs[part] = now - t
-        t = now
+    CLASSIFY_SECONDS.update(dict.fromkeys(CLASSIFY_SECONDS, 0.0))
+    lap = Laps(CLASSIFY_SECONDS)
 
     db_records = [(r.id, r.seq.upper()) for r in read_fastx(str(db.fasta_path))]
     log.info("Loaded %d database sequences", len(db_records))

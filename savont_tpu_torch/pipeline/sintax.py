@@ -9,7 +9,6 @@ reference, is kept as the test oracle."""
 from __future__ import annotations
 
 import logging
-import time
 from pathlib import Path
 
 import numpy as np
@@ -25,18 +24,22 @@ from ..ops.align_torch import events_ms, kernel_events
 from ..ops.sintax_torch import (
     index_on, keys_int64, query_index, ragged_rows, sintax_scores_rows,
 )
+from ..tracing import Laps, span
 
 log = logging.getLogger("savont")
 
 CHUNK_ROWS = 4096  # references per launch of kernel 3
 ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
 # the device scores' counters: calls, kept references scored on this rank
-# (those with k-mers), wall seconds inside
-# and of them in the host's k-mer extraction of the references (the FASTA
-# stream, extract_kmers, np.unique), and device
-# milliseconds of the launches (CUDA events read after the one fetch; 0.0 on
-# the CPU)
-SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "kernel_ms": 0.0}
+# (those with k-mers), wall seconds inside, and of them in the host's k-mer
+# extraction of the references (kmers_s, a span "sintax:extract" a chunk of
+# CHUNK_ROWS references: the FASTA stream, key and taxonomy lookups,
+# parse_s; extract_kmers and np.unique, extract_s) and in the chunks'
+# flushes (flush_s, span "sintax:flush": ragged rows, uploads, kernel-3
+# launches), and device milliseconds of the launches (CUDA events read
+# after the one fetch; 0.0 on the CPU)
+SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "parse_s": 0.0,
+               "extract_s": 0.0, "flush_s": 0.0, "kernel_ms": 0.0}
 
 QUERY_SENTINEL = np.uint32(0xFFFFFFFE)
 _BYTE_CODE = np.zeros(256, dtype=np.uint32)
@@ -158,13 +161,12 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
     the ranks' keys are max'ed with one all_reduce before the fetch (the
     reference's pmax over its mesh).  Equal to the host stream
     (_host_scores) and to the JAX package's mesh step, bit for bit."""
-    t_start = time.perf_counter()
     stats = SCORE_STATS
     stats["calls"] += 1
-    with kernel_events() as events:
-        out = _scores_on(subs, db, n_pairs, resolve_device(device), stats)
-    stats["kernel_ms"] += events_ms(events)  # after the one fetch: no wait
-    stats["seconds"] += time.perf_counter() - t_start
+    with span(None, stats, "seconds"):
+        with kernel_events() as events:
+            out = _scores_on(subs, db, n_pairs, resolve_device(device), stats)
+        stats["kernel_ms"] += events_ms(events)  # after the one fetch: no wait
     return out
 
 
@@ -179,9 +181,37 @@ def _scores_on(subs, db, n_pairs, dev, stats):
     pend_r: list[int] = []
     n_ranks, my_rank = distributed.world(), distributed.rank()
 
+    def extract(records) -> None:
+        """The next chunk's references into pend_k / pend_r: up to CHUNK_ROWS
+        of them, or to the end of the stream."""
+        lap = Laps(stats)
+        for n, rec in records:
+            if n > ORDINAL_MAX:
+                raise ValueError(f"sintax: the database holds more than {ORDINAL_MAX + 1} "
+                                 "records, the most a score key's ordinal field can tell apart")
+            key = db.extract_key(rec.id)
+            if key is None:
+                continue
+            entry = db.taxonomy.get(key)
+            if entry is None:
+                continue
+            entries[n] = entry
+            # the rank's references: every n_ranks-th record (all of them
+            # without a process group)
+            if n % n_ranks == my_rank:
+                lap("parse_s")
+                ref_kmers = np.unique(extract_kmers(rec.seq.upper()))
+                lap("extract_s")
+                if len(ref_kmers):
+                    pend_k.append(ref_kmers)
+                    pend_r.append(n)
+            if (n + 1) % 10000 == 0:
+                log.info("Processed %d reference sequences...", n + 1)
+            if len(pend_k) == CHUNK_ROWS:
+                break
+        lap("parse_s")
+
     def flush():
-        if not pend_k:
-            return
         kmers, row_off = ragged_rows(pend_k)
         ridx = np.asarray(pend_r, dtype=np.int32)
         sintax_scores_rows(index, torch.from_numpy(kmers).to(dev), torch.from_numpy(row_off).to(dev),
@@ -190,33 +220,14 @@ def _scores_on(subs, db, n_pairs, dev, stats):
         pend_k.clear()
         pend_r.clear()
 
-    t_host = time.perf_counter()
-    for n, rec in enumerate(read_fastx(str(db.fasta_path))):
-        if n > ORDINAL_MAX:
-            raise ValueError(f"sintax: the database holds more than {ORDINAL_MAX + 1} records, "
-                             "the most a score key's ordinal field can tell apart")
-        key = db.extract_key(rec.id)
-        if key is None:
-            continue
-        entry = db.taxonomy.get(key)
-        if entry is None:
-            continue
-        entries[n] = entry
-        # the rank's references: every n_ranks-th record (all of them
-        # without a process group)
-        if n % n_ranks == my_rank:
-            ref_kmers = np.unique(extract_kmers(rec.seq.upper()))
-            if len(ref_kmers):
-                pend_k.append(ref_kmers)
-                pend_r.append(n)
-                if len(pend_k) == CHUNK_ROWS:
-                    stats["kmers_s"] += time.perf_counter() - t_host
-                    flush()
-                    t_host = time.perf_counter()
-        if (n + 1) % 10000 == 0:
-            log.info("Processed %d reference sequences...", n + 1)
-    stats["kmers_s"] += time.perf_counter() - t_host
-    flush()
+    records = enumerate(read_fastx(str(db.fasta_path)))
+    while True:
+        with span("sintax:extract", stats, "kmers_s"):
+            extract(records)
+        if not pend_k:
+            break
+        with span("sintax:flush", stats, "flush_s"):
+            flush()
 
     # the keys are unsigned 32-bit patterns (a score of 32 sets bit 31), so
     # the ranks' maximum is taken on them widened to int64

@@ -7,7 +7,6 @@ sharded hash maps become a sort/segment-reduce over all reads' split k-mers.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 
@@ -37,6 +36,7 @@ from ..ops.kmers import (
     syncmer_and_snpmer_scan,
 )
 from ..ops.stats import binomial_test_gt, snpmer_strand_test
+from ..tracing import part, span
 
 log = logging.getLogger("savont")
 
@@ -174,7 +174,10 @@ def _iter_reads_for_counting(files: list[str]):
 # (CUDA events between its marks, ops.align_torch.PartClock), of the host
 # scan + count (the host route's streamed count includes its parse), and of
 # the strand filter; reads, positions, flagged k-mers and distinct k-mers
-# (device route), and the route of the last call
+# (device route), and the route of the last call.  The asv stage's parts
+# (tracing.part) split the same time: "1.feed_wait", the count loop waiting
+# for the feeder's parse + encode; "1.count", the scan, count and merge
+# (the host count, or the device route's) and the strand filter
 COUNT_STATS = {"calls": 0, "route": "", "reads": 0, "positions": 0, "flagged": 0, "distinct": 0,
                "parse_encode_s": 0.0, "upload_s": 0.0, "kernel4_s": 0.0, "compact_s": 0.0,
                "sort_count_s": 0.0, "fetch_s": 0.0, "host_count_s": 0.0, "filter_s": 0.0}
@@ -190,7 +193,7 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
     files (seq_parse.rs:12-78).  Returns (kmers sorted, counts[n,2]) after
     the both-strands/multiplicity filter.  args.stage1_backend "mesh" runs
     the extraction (kernel 4) and, without -b, the count on args.device."""
-    from ..ops.kmers_native import get_scan_lib, split_kmers_native
+    from ..ops.kmers_native import get_scan_lib
 
     k = args.kmer_size
     stats = COUNT_STATS
@@ -215,22 +218,48 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
         # (which releases the GIL).  Counting is per-k-mer commutative, so
         # chunk boundaries cannot change the result (same merge as
         # _count_chunked_native; parity pinned by tests).
-        t0 = time.perf_counter()
-        kmers, counts, n_reads = _streamed_count(args)
-        stats["host_count_s"] += time.perf_counter() - t0
+        with span(None, stats, "host_count_s"):
+            kmers, counts, n_reads = _streamed_count(args)
         stats["reads"] += n_reads
         return _finish_split_kmers(kmers, counts, n_reads, args)
 
-    t0 = time.perf_counter()
+    with span(None, stats, "parse_encode_s"):
+        codes_list, phred_list = _counting_encodes(args.input_files)
+    n_reads = len(codes_list)
+    stats["reads"] += n_reads
+    per_read = None
+    if on_device:
+        # the device route (the reference's SAVONT_DEVICE_KMERS branch):
+        # kernel 4 over the whole batch; without -b the count stays on the
+        # device too and one table comes back
+        if args.bloom_filter_size <= 0:
+            from ..parallel.mesh import split_kmer_count
 
-    # cached per-path encodes (stage 1.5 reuses them); 'rc'-tagged reads are
-    # re-encoded from the flipped bytes — code-level revcomp would differ on
-    # non-ACGT bytes (revcomp_bytes maps them to N=code 0, not 3-code)
+            with part("count"):
+                kmers, counts = split_kmer_count(
+                    codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
+                )
+            return _finish_split_kmers(kmers, counts, n_reads, args)
+        from ..ops.kmers_torch import device_split_kmers
+
+        per_read = device_split_kmers(
+            codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
+        )
+    with part("count", also=(stats, "host_count_s")):
+        kmers, counts = _host_count(codes_list, phred_list, per_read, args)
+    return _finish_split_kmers(kmers, counts, n_reads, args)
+
+
+def _counting_encodes(files: list[str]) -> tuple[list, list]:
+    """Every read's codes and phreds for counting: the cached per-path
+    encodes (stage 1.5 reuses them), 'rc'-tagged reads re-encoded from the
+    flipped bytes — code-level revcomp would differ on non-ACGT bytes
+    (revcomp_bytes maps them to N=code 0, not 3-code)."""
     codes_list, phred_list = [], []
     rc_rows: list[int] = []
     rc_seqs: list[bytes] = []
     rc_quals: list = []
-    for path in args.input_files:
+    for path in files:
         enc_c, enc_p = _cached_encoded(path)
         for rec, c, p in zip(_cached_records(path), enc_c, enc_p):
             fields = rec.id.split()
@@ -245,62 +274,47 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
         for i, c, p in zip(rc_rows, rc_c, rc_p):
             codes_list[i] = c
             phred_list[i] = p
-    n_reads = len(codes_list)
-    stats["reads"] += n_reads
-    t1 = time.perf_counter()
-    stats["parse_encode_s"] += t1 - t0
-    t0 = t1
-    if on_device:
-        # the device route (the reference's SAVONT_DEVICE_KMERS branch):
-        # kernel 4 over the whole batch; without -b the count stays on the
-        # device too and one table comes back
-        if args.bloom_filter_size <= 0:
-            from ..parallel.mesh import split_kmer_count
+    return codes_list, phred_list
 
-            kmers, counts = split_kmer_count(
-                codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
-            )
-            return _finish_split_kmers(kmers, counts, n_reads, args)
-        from ..ops.kmers_torch import device_split_kmers
 
-        per_read = device_split_kmers(
-            codes_list, phred_list, k, args.minimum_base_quality, args.device, stats
-        )
-        t0 = time.perf_counter()  # the host count starts here
-    elif get_scan_lib() is not None:
-        per_read = split_kmers_native(codes_list, phred_list, k, args.minimum_base_quality)
-    else:
-        per_read = [
-            split_kmer_mid(c, p, k, args.minimum_base_quality)
-            for c, p in zip(codes_list, phred_list)
-        ]
-    if per_read is not None:
-        if args.bloom_filter_size > 0:
-            # -b: the reference's Bloom-prefiltered low-memory counting mode
-            # (seq_parse.rs:80-314).  Exact chunked merge, identical output.
-            kmers, counts = count_flagged_kmers_streaming(per_read)
-            if args.aggressive_bloom:
-                # seq_parse.rs:232-258: admission needs an occurrence with a
-                # prior same-strand AND prior other-strand sighting (exact
-                # Bloom semantics, i.e. no false-positive admissions)
-                from ..ops.kmers import aggressive_bloom_admitted
+def _host_count(codes_list, phred_list, per_read, args: ClusterArgs):
+    """The host count of every read's flagged split k-mers: per_read where
+    the device extracted them, else the native (or numpy) scan first."""
+    from ..ops.kmers_native import get_scan_lib, split_kmers_native
 
-                admitted = aggressive_bloom_admitted(per_read)
-                if len(admitted):
-                    pos = np.minimum(np.searchsorted(admitted, kmers), len(admitted) - 1)
-                    keep = admitted[pos] == kmers
-                else:
-                    keep = np.zeros(len(kmers), dtype=bool)
-                n_drop = int(len(kmers) - keep.sum())
-                kmers, counts = kmers[keep], counts[keep]
-                log.info(
-                    "--aggressive-bloom: %d k-mers dropped by strict two-strand admission",
-                    n_drop,
-                )
+    k = args.kmer_size
+    if per_read is None:
+        if get_scan_lib() is not None:
+            per_read = split_kmers_native(codes_list, phred_list, k, args.minimum_base_quality)
         else:
-            kmers, counts = count_flagged_kmers(per_read, threads=args.threads)
-    stats["host_count_s"] += time.perf_counter() - t0
-    return _finish_split_kmers(kmers, counts, n_reads, args)
+            per_read = [
+                split_kmer_mid(c, p, k, args.minimum_base_quality)
+                for c, p in zip(codes_list, phred_list)
+            ]
+    if args.bloom_filter_size <= 0:
+        return count_flagged_kmers(per_read, threads=args.threads)
+    # -b: the reference's Bloom-prefiltered low-memory counting mode
+    # (seq_parse.rs:80-314).  Exact chunked merge, identical output.
+    kmers, counts = count_flagged_kmers_streaming(per_read)
+    if args.aggressive_bloom:
+        # seq_parse.rs:232-258: admission needs an occurrence with a
+        # prior same-strand AND prior other-strand sighting (exact
+        # Bloom semantics, i.e. no false-positive admissions)
+        from ..ops.kmers import aggressive_bloom_admitted
+
+        admitted = aggressive_bloom_admitted(per_read)
+        if len(admitted):
+            pos = np.minimum(np.searchsorted(admitted, kmers), len(admitted) - 1)
+            keep = admitted[pos] == kmers
+        else:
+            keep = np.zeros(len(kmers), dtype=bool)
+        n_drop = int(len(kmers) - keep.sum())
+        kmers, counts = kmers[keep], counts[keep]
+        log.info(
+            "--aggressive-bloom: %d k-mers dropped by strict two-strand admission",
+            n_drop,
+        )
+    return kmers, counts
 
 
 def _finish_split_kmers(
@@ -309,9 +323,8 @@ def _finish_split_kmers(
     """Shared strand/multiplicity filter + starvation abort
     (seq_parse.rs:69-72)."""
     raw_n = len(kmers)
-    t0 = time.perf_counter()
-    kmers, counts = filter_counted_kmers(kmers, counts, args.single_strand)
-    COUNT_STATS["filter_s"] += time.perf_counter() - t0
+    with part("count", also=(COUNT_STATS, "filter_s")):
+        kmers, counts = filter_counted_kmers(kmers, counts, args.single_strand)
     log.info("counted %d reads; %d split-kmers, %d retained after strand filter", n_reads, raw_n, len(kmers))
     if raw_n > 0 and len(kmers) < raw_n / 1000:
         raise SystemExit(
@@ -416,17 +429,19 @@ def _streamed_count(
     n_reads = 0
     try:
         while True:
-            item = q.get()
+            with part("feed_wait"):
+                item = q.get()
             if item is None:
                 break
-            codes_c, phred_c = item
-            n_reads += len(codes_c)
-            allk = split_kmers_flat_native(
-                codes_c, phred_c, k, args.minimum_base_quality, args.threads
-            )
-            if len(allk):
-                ck, cc2 = count_flagged_native(allk, args.threads)
-                kmers, counts = merge_counted(kmers, counts, ck, cc2)
+            with part("count"):
+                codes_c, phred_c = item
+                n_reads += len(codes_c)
+                allk = split_kmers_flat_native(
+                    codes_c, phred_c, k, args.minimum_base_quality, args.threads
+                )
+                if len(allk):
+                    ck, cc2 = count_flagged_native(allk, args.threads)
+                    kmers, counts = merge_counted(kmers, counts, ck, cc2)
     finally:
         # unblock a producer stuck on a full queue if we errored out
         while t.is_alive():

@@ -27,6 +27,7 @@ from ..ops.encode import (
     homopolymer_compress_with_quality,
     revcomp_bytes,
 )
+from ..tracing import part
 
 log = logging.getLogger("savont")
 
@@ -483,16 +484,14 @@ def align_and_consensus(
         oriented_by_cluster, mappings_by_cluster = ori_h, mps_h
 
     voted_ids = [cid for cid in range(len(ctx)) if mappings_by_cluster.get(cid)]
-    for cid, t in zip(
-        voted_ids,
-        _vote_consensus_batch(
+    with part("vote"):
+        voted = _vote_consensus_batch(
             [templates[cid] for cid in voted_ids],
             [oriented_by_cluster[cid] for cid in voted_ids],
             [mappings_by_cluster[cid] for cid in voted_ids],
             args.threads,
-        ),
-    ):
-        templates[cid] = t
+        )
+    templates.update(zip(voted_ids, voted))
 
     # round 2: re-align oriented reads to round-1 templates, batched
     queries2, owners2, ti2 = [], [], []
@@ -518,16 +517,14 @@ def align_and_consensus(
         mps2.setdefault(cid, []).append(m)
 
     voted2 = [cid for cid in range(len(ctx)) if mps2.get(cid)]
-    for cid, t in zip(
-        voted2,
-        _vote_consensus_batch(
+    with part("vote"):
+        voted = _vote_consensus_batch(
             [templates[cid] for cid in voted2],
             [ori2[cid] for cid in voted2],
             [mps2[cid] for cid in voted2],
             args.threads,
-        ),
-    ):
-        templates[cid] = t
+        )
+    templates.update(zip(voted2, voted))
 
     out: list[tuple[int, bytes, int, list[int]]] = []
     for cid, cluster in enumerate(clusters):

@@ -13,6 +13,7 @@ from ..ops.align import TargetIndex
 from ..ops.align_batch import align_pairs_nm_values_indexed, map_batch
 from ..ops.em import em_abundances, groups_to_rows
 from ..ops.encode import U64
+from ..tracing import part
 
 log = logging.getLogger("savont")
 
@@ -287,10 +288,6 @@ def refine_asv_depths_with_em(
     """
     if not consensuses:
         return consensuses, {}, 0
-    asv_trs: list[TwinRead] = build_asv_twin_reads()
-    k = args.kmer_size
-    asv_seqs = [a.seq_bytes() for a in asv_trs]
-
     eq_classes: dict[tuple[int, ...], int] = {}
     unambig = np.zeros(len(consensuses), dtype=np.int64)
     ambig = np.zeros(len(consensuses), dtype=np.int64)
@@ -299,21 +296,25 @@ def refine_asv_depths_with_em(
     filtered = 0
     mapping_lines: list[str] = []
 
-    # gather candidates for all reads, then batch the tie-break alignments
-    read_list = [
-        tr for tr in twin_reads if sample_filter is None or tr.file_idx == sample_filter
-    ]
-    cr, ca, _cm = _all_snpmer_candidates(read_list, asv_trs, k, args.c)
-    # the reference maps ASV-as-query against a read index
-    # (alignment.rs:1841-1855); NM of the optimal local alignment is
-    # orientation-symmetric, and read-as-query lets the ASV target
-    # indexes be cached (one per ASV instead of one per read).
-    # Indexed form: decompress each candidate read once, keep (query,
-    # target) id arrays — the aligner plans straight off them
-    ur, qi = np.unique(cr, return_inverse=True)
-    cand_trs = [read_list[int(r)] for r in ur.tolist()]
-    TwinRead.warm_seq_bytes(cand_trs)  # one batched decode for all misses
-    read_seqs = [tr.seq_bytes() for tr in cand_trs]
+    with part("candidates"):  # the SNPmer candidates and their reads' bytes
+        asv_trs: list[TwinRead] = build_asv_twin_reads()
+        k = args.kmer_size
+        asv_seqs = [a.seq_bytes() for a in asv_trs]
+        # gather candidates for all reads, then batch the tie-break alignments
+        read_list = [
+            tr for tr in twin_reads if sample_filter is None or tr.file_idx == sample_filter
+        ]
+        cr, ca, _cm = _all_snpmer_candidates(read_list, asv_trs, k, args.c)
+        # the reference maps ASV-as-query against a read index
+        # (alignment.rs:1841-1855); NM of the optimal local alignment is
+        # orientation-symmetric, and read-as-query lets the ASV target
+        # indexes be cached (one per ASV instead of one per read).
+        # Indexed form: decompress each candidate read once, keep (query,
+        # target) id arrays — the aligner plans straight off them
+        ur, qi = np.unique(cr, return_inverse=True)
+        cand_trs = [read_list[int(r)] for r in ur.tolist()]
+        TwinRead.warm_seq_bytes(cand_trs)  # one batched decode for all misses
+        read_seqs = [tr.seq_bytes() for tr in cand_trs]
     # stage7_backend == "mesh": the align + tie-set + EM step runs on the
     # device (parallel/mesh.mesh_stage7_tie_break).  The NM winners come back
     # equal to align_pairs_nm's, and the emitted depths still use the host
