@@ -71,8 +71,9 @@ failure; nothing catches it, so the exit code is non-zero):
                  package's host runs in a fresh process); each route's
                  counts, set to 0 just before it, must show kernel 1 (NM)
                  over the candidate jobs, kernels 1 (payload) + 2 over the
-                 written hits only, kernel 3 on the sintax scores, and no
-                 plain version.  Then kernel 3 against its plain version
+                 written hits only, kernels 6 and 3 once a chunk on the
+                 sintax scores with every row's k-mers extracted on the
+                 card, and no plain version.  Then kernel 3 against its plain version
                  and the dense composition, exact, on its 11 edge cases
                  (ties across rows and across chunks, sentinel and empty
                  rows, repeated slots at score 32, rows of 1 to 20,000
@@ -82,8 +83,18 @@ failure; nothing catches it, so the exit code is non-zero):
                  pair and one row); and at the cell's three shapes (the
                  phase-5 ASVs' 1,000 pairs, the hard ASVs' 4,000 and both
                  sets in one run, 5,000 over two pair tiles, each against
-                 the first 4,096 references), timed with its bound; and
-                 kernel 1 (NM) timed at the classify cell's shapes.
+                 the first 4,096 references), timed with its bound; kernel
+                 6 against its plain version, exact, on sintax_ref_cases
+                 (every byte value, lowercase, U / u, N and IUPAC codes,
+                 rows of 0 to 13 bases, homopolymers and tandem repeats, a
+                 sequence and its reverse complement, palindromic k-mers,
+                 every alignment, the edges of its tiles, a chunk of 4,096
+                 EMU-shaped references, rows past its shared memory) and
+                 at the database's first 4,096 references, timed with its
+                 bound, the plain version and the library composition;
+                 the route's scores on the card (_device_scores) equal to
+                 the host stream's (_host_scores); and kernel 1 (NM) timed
+                 at the classify cell's shapes.
   7. stage-1 k-mers - kernels 4 (split k-mers) and 5 (open syncmers)
                  against their plain versions on the card, exact, on
                  kmer_edge_cases (reads of length 0, k - 1, k and k + 1,
@@ -142,9 +153,9 @@ failure; nothing catches it, so the exit code is non-zero):
                  templates at 100,000 references, `classify` of the 48 ASVs
                  and of 40 hard ASVs cut from that database and `sintax` of
                  the 48 ASVs, held to DIGESTS_SCALE_CLASSIFICATION, sintax
-                 over every reference in chunks of 4,096 (25 launches of
-                 kernel 3).  Then kernel 1 (NM) on one full stage-7 launch
-                 of the sample (16,384 jobs at band 48) and kernel 3 on the
+                 over every reference in chunks of 4,096 (25 launches each
+                 of kernels 6 and 3, every row extracted on the card).
+                 Then kernel 1 (NM) on one full stage-7 launch of the sample (16,384 jobs at band 48) and kernel 3 on the
                  48 ASVs' 4,800 pairs (two pair tiles) against the first
                  4,096 references: each against its plain version at
                  tolerance 0, timed as 20 queued launches and one alone,
@@ -242,6 +253,8 @@ SINTAX_SMEM_KEYS = 4096  # the most query keys kernel 3 stages a block (kSmemKey
 # kernel 3's timed query matrices: phase 5's ASVs (one pair tile), the hard
 # ASVs (one tile, D past SINTAX_SMEM_KEYS) and both in one run (two tiles)
 SINTAX_SHAPES = ("mesh", "hard", "mesh_hard")
+SINTAX_REF_TILE = 2048   # kernel 6's positions a staged tile (kTile, ops/csrc/sintax_ref_kmers.cu)
+SINTAX_REF_OPTIN = 12_288  # k-mers past which kernel 6's shared memory needs the opt-in (48 KB)
 # sha256 of the outputs of the JAX package's host runs, in a fresh process
 # (band 128), on the classification cell's inputs: its build_emu_slice of
 # phase 5's templates, classify of the phase-5 ASVs (written into their
@@ -377,6 +390,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     **{f"probe_roll_{mode}": ("savont_tpu_torch/ops/csrc/probe_roll.cu", "scripts/pallas_probe_roll.py:25")
        for mode in ("add", "shfl", "smem")},
     "sintax_scores": ("savont_tpu_torch/ops/csrc/sintax_scores.cu", "savont_tpu/parallel/mesh.py:977"),
+    # no TPU kernel: the host extraction it takes over
+    "sintax_ref_kmers": ("savont_tpu_torch/ops/csrc/sintax_ref_kmers.cu",
+                         "savont_tpu/pipeline/sintax.py:162"),
     "split_kmers": ("savont_tpu_torch/ops/csrc/split_kmers.cu", "savont_tpu/ops/kmers_jax.py:64"),
     "syncmers": ("savont_tpu_torch/ops/csrc/syncmers.cu", "savont_tpu/ops/kmers_jax.py:104"),
 }
@@ -832,6 +848,261 @@ def sintax_edge_cases(seed: int = EDGE_SEED + 2) -> list[dict]:
         sintax_case(rng, "ties_split", 200, 18, 16, 4, tie_rows=(1, 3, 4, 7, 8, 11, 12, 16, 17),
                     sentinel_pairs=(9,), dup_pairs=(5,)),
     ]
+
+
+def sintax_ref_cases(seed: int = EDGE_SEED + 4) -> list[dict]:
+    """Raw inputs of kernel 6, each a chunk of references (bytes) launched
+    at once: every byte value; lowercase bases, U / u, N, IUPAC codes, '-'
+    and '\\r'; rows of 0, 1, 11, 12 and 13 bases beside longer ones;
+    homopolymers and tandem repeats (many repeated k-mers); a sequence and
+    its reverse complement (the same row); k-mers that are their own reverse
+    complement; rows from every byte offset mod 16, the last ending the
+    buffer off a 16-byte boundary; rows one position each side of one, two
+    and three staged tiles (SINTAX_REF_TILE), of a compaction tile and of a
+    power of two; one chunk of 4,096 references of 1,330-1,570 bp, shaped
+    like the sintax cell's EMU references; and rows longer than a block's
+    shared memory holds (sorted in device memory; one of them of repeats
+    only) beside rows that need the opt-in above 48 KB."""
+    import numpy as np
+
+    from savont_tpu_torch.ops.encode import revcomp_bytes
+
+    rng = np.random.default_rng(seed)
+
+    def rand(n: int, alphabet: bytes = b"ACGT") -> bytes:
+        return rng.choice(np.frombuffer(alphabet, dtype=np.uint8), n).tobytes()
+
+    def sprinkle(seq: bytes, share: float, alphabet: bytes) -> bytes:
+        a = np.frombuffer(seq, dtype=np.uint8).copy()
+        at = rng.random(len(a)) < share
+        a[at] = rng.choice(np.frombuffer(alphabet, dtype=np.uint8), int(at.sum()))
+        return a.tobytes()
+
+    base = rand(1450)
+    rc = revcomp_bytes(base)
+    aligned = [rand(12 + 3 * i + (i % 16)) for i in range(48)]
+    if sum(map(len, aligned)) % 16 == 0:
+        aligned[-1] += b"A"
+    tile = SINTAX_REF_TILE
+    emu = []
+    for i in range(4096):
+        seq = rand(int(rng.integers(1330, 1571)))
+        if i % 50 == 0:
+            seq = sprinkle(seq, 0.01, b"NRYKMSWBDHVn")
+        if i % 70 == 0:
+            seq = seq[:400] + seq[400:900].lower() + seq[900:]
+        emu.append(seq)
+    return [
+        {"name": "bytes", "seqs": [bytes(range(256)) * 3, rng.integers(0, 256, 700, dtype=np.uint8)
+                                   .tobytes(), bytes(range(255, -1, -1)) + b"ACGT" * 10]},
+        {"name": "case_u_n", "seqs": [base, base.lower(), base.replace(b"T", b"U"),
+                                      base.lower().replace(b"t", b"u"),
+                                      sprinkle(base, 0.05, b"NnRYKMSWBDHV-\r"),
+                                      sprinkle(base, 0.3, b"acgtuU")]},
+        {"name": "lengths", "seqs": [b"", rand(1), rand(11), rand(12), rand(13), rand(11).lower(),
+                                     b"N" * 12, rand(13) + b"\r", rand(40), b"", rand(12)]},
+        {"name": "repeats", "seqs": [b"A" * 500, b"c" * 300, b"T" * 1000, b"N" * 200, b"AC" * 300,
+                                     b"ACGTTGCA" * 100, rand(12) * 50, rand(7) * 90, rand(100) * 5,
+                                     rand(300) + b"G" * 600 + rand(300)]},
+        {"name": "revcomp", "seqs": [base, rc, base.lower(), rc.lower(), rand(20)]},
+        {"name": "palindromes", "seqs": [b"AAACCCGGGTTT", b"ACGTACGTACGT" * 20,
+                                         b"".join(h + revcomp_bytes(h) for h in
+                                                  (rand(6) for _ in range(100)))]},
+        {"name": "alignments", "seqs": aligned},
+        {"name": "tile_edges", "seqs": [rand(n + 11) for n in (
+            tile - 1, tile, tile + 1, 2 * tile, 2 * tile + 1, 3 * tile - 1, 255, 256, 257, 1023,
+            1024, 1025)]},
+        {"name": "emu_chunk", "seqs": emu},
+        {"name": "long_rows", "seqs": [rand(1450), rand(20_000), rand(57_000), rand(1450),
+                                       rand(60_000), rand(131_083), rand(997) * 70, b"A" * 60_000,
+                                       rand(13)]},
+    ]
+
+
+def check_sintax_ref_kmers() -> int:
+    """Kernel 6 against its plain version on the card, exact, over
+    sintax_ref_cases, one launch a case, each launch counted; long_rows
+    must hold rows longer than the card's shared memory holds and one that
+    needs the opt-in.  Returns the case count."""
+    import numpy as np
+    import torch
+
+    from savont_tpu_torch.ops import sintax_torch as st
+    from savont_tpu_torch.ops.build import build_kernels
+
+    cap = build_kernels().sintax_ref_kmers_smem_cap()
+    cases = sintax_ref_cases()
+    for case in cases:
+        host = st.ref_rows(case["seqs"])
+        caps = np.diff(host[2])
+        n0 = st.LAUNCHES["sintax_ref_kmers"]
+        got = st.sintax_ref_kmers(st.ref_rows_on(*host, "cuda"))
+        torch.cuda.synchronize()
+        want = st.sintax_ref_kmers_reference(st.ref_rows_on(*host, "cpu"))
+        if st.LAUNCHES["sintax_ref_kmers"] != n0 + 1:
+            raise AssertionError(f"sintax ref case {case['name']}: {st.LAUNCHES} launches")
+        if not torch.equal(got.cpu(), want):
+            bad = np.flatnonzero((got.cpu() != want).numpy())
+            r = int(np.searchsorted(host[2], bad[0], side="right")) - 1
+            raise AssertionError(f"sintax ref case {case['name']}: kernel 6 differs from its "
+                                 f"plain version at {len(bad)} of {len(want)} values, first in row "
+                                 f"{r} of {len(caps)} ({caps[r]} k-mers)")
+        if case["name"] == "long_rows" and not (caps.max() > cap and
+                                                 ((caps > SINTAX_REF_OPTIN) & (caps <= cap)).any()):
+            raise AssertionError(f"long_rows: capacities {caps.tolist()} against a shared-memory "
+                                 f"cap of {cap} k-mers")
+        kept = int((want != st.ROW_PAD).sum())
+        log(f"  ref edge {case['name']}: {len(caps)} rows, {len(host[0])} bytes, {len(want)} "
+            f"positions, {kept} distinct k-mers kept, longest row {caps.max(initial=0)}, "
+            f"{int((caps > cap).sum())} rows past the shared-memory cap of {cap}: kernel 6 == plain "
+            f"(exact)")
+    return len(cases)
+
+
+def sintax_ref_bound(n_bytes: int, R: int, n_kmers: int) -> dict:
+    """Least time for kernel 6's function on a chunk: the bases read once,
+    the two offset arrays read once and the rows written once, over the
+    memory rate."""
+    moved = n_bytes + 16 * (R + 1) + 4 * n_kmers
+    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": moved}
+
+
+def sintax_ref_cell(seqs: list, tag: str) -> dict:
+    """Kernel 6 at the sintax route's chunk shape, one launch as the route
+    makes it over the references `seqs`; against its plain version on the
+    card and the library composition (the canonical k-mers as (row << 32 |
+    k-mer) keys padded to the longest row, precomputed: torch.sort along
+    the rows, then torch.unique_consecutive), exact; timed (queued and
+    single) in the order library, plain, kernel, kernel, plain, library."""
+    import numpy as np
+    import torch
+
+    from savont_tpu_torch.ops import sintax_torch as st
+    from savont_tpu_torch.ops.kmers_torch import _pack
+    from savont_tpu_torch.probes.roofline import QUEUED_RUNS, launch_ms
+
+    host = st.ref_rows(seqs)
+    rows = st.ref_rows_on(*host, "cuda")
+    R, n = len(seqs), rows.n_kmers
+    got = st.sintax_ref_kmers(rows)
+    want = st.sintax_ref_kmers_reference(rows)
+    # the library composition's input: every position's canonical k-mer,
+    # keyed by its row, in rows padded past their ends with the row's
+    # largest key
+    caps = rows.row_off[1:] - rows.row_off[:-1]
+    row = torch.repeat_interleave(torch.arange(R, device="cuda"), caps)
+    pos = torch.arange(n, device="cuda") - rows.row_off[:-1][row]
+    fwd, rev = _pack(st.BYTE_CODE.cuda()[rows.seqs.long()], rows.off[:-1][row] + pos, st.K)
+    padded = (torch.arange(R, device="cuda")[:, None] << 32 | 0xFFFFFFFF).repeat(1, rows.max_n)
+    padded[row, pos] = row << 32 | torch.minimum(fwd, rev)
+
+    def library():
+        return torch.unique_consecutive(torch.sort(padded, dim=1).values)
+
+    lib = library()
+    live = got != st.ROW_PAD
+    torch.cuda.synchronize()
+    lib_live = lib[(lib & 0xFFFFFFFF) != 0xFFFFFFFF]
+    err = int(not torch.equal(got, want)) + int(not torch.equal(
+        lib_live, row[live] << 32 | got[live].long()))
+    if err:
+        raise AssertionError(f"kernel 6 differs from its plain version or the library composition "
+                             f"at {tag}'s chunk ({err})")
+    out_t = torch.empty_like(got)
+    l1 = launch_ms(library, reps=1)
+    p1 = launch_ms(lambda: st.sintax_ref_kmers_reference(rows), reps=1)
+    k1 = launch_ms(lambda: st.sintax_ref_kmers_launch(rows, out_t), runs=QUEUED_RUNS)
+    k2 = launch_ms(lambda: st.sintax_ref_kmers_launch(rows, out_t), runs=QUEUED_RUNS)
+    p2 = launch_ms(lambda: st.sintax_ref_kmers_reference(rows), reps=1)
+    single = launch_ms(lambda: st.sintax_ref_kmers_launch(rows, out_t))
+    l2 = launch_ms(library, reps=1)
+    torch.cuda.synchronize()
+    if not torch.equal(out_t, want):
+        raise AssertionError(f"kernel 6's timed launches at {tag}'s chunk differ from its plain "
+                             "version")
+    b = sintax_ref_bound(len(host[0]), R, n)
+    lens = np.diff(host[1])
+    out = {"max_abs_err": err, "ms": min(k1, k2), "single_ms": single, "plain_ms": min(p1, p2),
+           "library_ms": min(l1, l2), "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "shape": {"R": R, "bytes": len(host[0]), "kmers": n, "kept": int(live.sum()),
+                     "len_min": int(lens.min()), "len_max": int(lens.max()),
+                     "moved_bytes": b["bytes"]}}
+    log(f"  sintax_ref_kmers at {tag}'s chunk ({R} references of {lens.min()}-{lens.max()} bp, "
+        f"{len(host[0])} bytes, {n} positions, {out['shape']['kept']} distinct k-mers kept): "
+        f"kernel {out['ms']:.4f} ms queued ({QUEUED_RUNS} launches; {k1:.4f}, {k2:.4f}), "
+        f"{single:.4f} ms single, {100 * b['bound_ms'] / out['ms']:.1f}% of bound; plain "
+        f"{out['plain_ms']:.2f} ms ({p1:.2f}, {p2:.2f}); library (torch.sort along the padded "
+        f"rows + unique_consecutive) {out['library_ms']:.3f} ms ({l1:.3f}, {l2:.3f}); bound "
+        f"{b['bound_ms']:.4f} ms (bytes: {b['bytes']} at {HBM_BYTES_PER_S / 1e12} TB/s); exact; "
+        f"{nvidia_smi_line()}")
+    return out
+
+
+def sintax_route_check(db_dir: Path, asv_fasta: Path) -> dict:
+    """sintax's scores on the card (_device_scores, kernels 6 and 3) against
+    the host stream (_host_scores) for asv_fasta's ASVs (100 iterations)
+    against db_dir: equal scores and taxa, every kept reference's row
+    extracted by kernel 6 (kmer_rows_card == refs), kernel 6 launched once
+    a chunk."""
+    import dataclasses
+    import math
+
+    from savont_tpu_torch.db import registry
+    from savont_tpu_torch.io.fastx import read_fastx
+    from savont_tpu_torch.ops import sintax_torch as st
+    from savont_tpu_torch.pipeline import sintax as route
+
+    db = registry.load_database(db_dir)
+    subs = route.query_matrix([r.seq.upper() for r in read_fastx(str(asv_fasta))], 100)
+    for k in route.SCORE_STATS:
+        route.SCORE_STATS[k] = type(route.SCORE_STATS[k])()
+    st.reset_counters()
+    t0 = time.perf_counter()
+    dev_scores, dev_tax = route._device_scores(subs, db, len(subs), "cuda")
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_scores, host_tax = route._host_scores(subs, route.QUERY_SENTINEL, db, len(subs))
+    host_s = time.perf_counter() - t0
+    sx = dict(route.SCORE_STATS)
+    as_rows = lambda tx: [None if e is None else dataclasses.astuple(e) for e in tx]
+    if not ((dev_scores == host_scores).all() and as_rows(dev_tax) == as_rows(host_tax)):
+        raise AssertionError("sintax: the scores on the card differ from the host stream's")
+    launches = st.LAUNCHES["sintax_ref_kmers"]
+    if not (sx["refs"] > 0 and sx["kmer_rows_card"] == sx["refs"] and
+            launches == st.LAUNCHES["sintax_scores"] == math.ceil(sx["refs"] / route.CHUNK_ROWS)):
+        raise AssertionError(f"sintax: kernel 6 did not extract every row: {sx}, {st.LAUNCHES}")
+    if any(st.REFERENCE_CALLS.values()):
+        raise AssertionError(f"sintax: plain versions called on the card: {st.REFERENCE_CALLS}")
+    log(f"sintax route on the card == host stream ({len(subs)} pairs, {sx['refs']} references, "
+        f"kmer_rows_card {sx['kmer_rows_card']}, {launches} launches of kernels 6 and 3): route "
+        f"{dev_s:.3f} s (extract {sx['extract_s']:.3f} s, parse {sx['parse_s']:.3f} s, flush "
+        f"{sx['flush_s']:.3f} s, kernels 6 + 3 {sx['kernel_ms']:.3f} device ms), host stream "
+        f"{host_s:.3f} s")
+    return {"stats": sx, "launches": launches, "route_s": dev_s, "host_s": host_s}
+
+
+def sintax_refs_alone(work: Path) -> dict:
+    """Kernel 6 alone, to iterate on it: the kernels built, its cases
+    (check_sintax_ref_kmers), its time at the emu_chunk case, then
+    sintax_route_check against a build_emu_slice of 8 random 1,450-bp
+    templates (10,000 references) in `work`, those templates as the
+    ASVs."""
+    import numpy as np
+
+    from savont_tpu_torch.db.synth import build_emu_slice
+    from savont_tpu_torch.ops.build import build_kernels
+
+    build_kernels()
+    n = check_sintax_ref_kmers()
+    cell = sintax_ref_cell(next(c["seqs"] for c in sintax_ref_cases() if c["name"] == "emu_chunk"),
+                           "emu_chunk")
+    rng = np.random.default_rng(SEED + 11)
+    tpl = work / "templates.fa"
+    tpl.write_text("".join(f">t{i}\n{''.join(rng.choice(list('ACGT'), TEMPLATE_LEN))}\n"
+                           for i in range(8)))
+    build_emu_slice(tpl, work / "db", n_refs=DB_REFS, seed=DB_SEED, device="cuda")
+    route = sintax_route_check(work / "db" / "emu", tpl)
+    return {"cases": n, "cell": cell, "route": route}
 
 
 def max_jump(job) -> int:
@@ -1329,8 +1600,9 @@ def check_sintax_edges() -> int:
     """Kernel 3 against its plain version on the card, exact, over
     sintax_edge_cases, each launched `chunk` rows at a time into one
     accumulator: the public entry (JAX layout, through the lower one) and
-    the lower entry, against the lower entry's plain version and the dense
-    composition.  Returns the case count."""
+    the lower entry on the rows with their padding stripped and kept
+    (kernel 6's layout), against the lower entry's plain version and the
+    dense composition.  Returns the case count."""
     import torch
 
     from savont_tpu_torch.ops.sintax_torch import (
@@ -1346,12 +1618,15 @@ def check_sintax_edges() -> int:
         refk = torch.from_numpy(kernel_kmers(case["refk"])).cuda()
         ridx = torch.from_numpy(case["ridx"].astype("int32")).cuda()
         accs = {k: torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
-                for k in ("public", "rows", "plain", "dense")}
+                for k in ("public", "rows", "padded", "plain", "dense")}
         for r0 in range(0, refk.shape[0], case["chunk"]):
             part = (refk[r0 : r0 + case["chunk"]].contiguous(), ridx[r0 : r0 + case["chunk"]].contiguous())
             rows = (*unpadded_rows(part[0]), part[1])
             sintax_scores(q, *part, accs["public"])
             sintax_scores_rows_launch(index, *rows, accs["rows"])
+            # kernel 6's layout: the sorted rows with their padding, each pad a miss
+            sintax_scores_rows_launch(index, part[0].reshape(-1), torch.arange(
+                part[0].shape[0] + 1, device="cuda") * part[0].shape[1], part[1], accs["padded"])
             sintax_scores_rows_reference(index, *rows, accs["plain"])
             sintax_scores_dense(q, *part, accs["dense"])
         torch.cuda.synchronize()
@@ -1365,8 +1640,8 @@ def check_sintax_edges() -> int:
             raise AssertionError(f"many_keys: {D} keys fit kernel 3's shared memory")
         log(f"  edge {case['name']}: {q.shape[0]} pairs ({D} distinct k-mers) x {refk.shape[0]} "
             f"rows of {refk.shape[1]}, chunks of {case['chunk']}, max score {int((want >> 26).max())}, "
-            f"{int((want == 0).sum())} pairs at 0: kernel 3 (public, rows) == plain == dense "
-            f"(exact)")
+            f"{int((want == 0).sum())} pairs at 0: kernel 3 (public, rows, padded rows) == plain "
+            f"== dense (exact)")
     return len(cases)
 
 
@@ -1580,14 +1855,15 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     out["classify_hard"] = cli_classify(f"{N_HARD} hard ASVs", work / "hard", db_dir)
     sintax_args = ["-i", str(work / "mesh"), "-d", str(db_dir), "--device", "cuda"]
     r = cli_counted("sintax", "sintax", "-o", str(work / "sintax"), *sintax_args)
-    sx = r["sintax"]
-    if r["sintax_launches"]["sintax_scores"] < 1:
-        raise AssertionError(f"sintax: kernel 3 did not carry the scores: {r}")
-    log(f"sintax: {sx['refs']} kept references, {r['sintax_launches']['sintax_scores']} launches "
-        f"of kernel 3; route "
-        f"{sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it extracting the references' k-mers "
-        f"on the host) of {r['wall_s']:.3f} s wall, kernel 3 {sx['kernel_ms']:.3f} device ms; "
-        f"{nvidia_smi_line()}")
+    sx, ln = r["sintax"], r["sintax_launches"]
+    if ln["sintax_scores"] < 1 or ln["sintax_ref_kmers"] != ln["sintax_scores"] or \
+            sx["kmer_rows_card"] != sx["refs"]:
+        raise AssertionError(f"sintax: kernels 6 and 3 did not carry every chunk: {r}")
+    log(f"sintax: {sx['refs']} kept references, all {sx['kmer_rows_card']} rows extracted on the "
+        f"card, {ln['sintax_ref_kmers']} launches each of kernels 6 and 3; route "
+        f"{sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it reading and joining the references "
+        f"on the host, {sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall, kernels "
+        f"6 + 3 {sx['kernel_ms']:.3f} device ms; {nvidia_smi_line()}")
     out["sintax"] = r
     # the same under --profile: the same outputs, profile.pstats and a trace
     prof = work / "profile"
@@ -1602,7 +1878,8 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     on_card = [e for e in events if e.get("cat") == "kernel"]
     log(f"sintax --profile: {rp['wall_s']:.3f} s wall (route {rp['sintax']['seconds']:.3f} s); "
         f"profile.pstats and trace.json ({len(events)} events, {len(on_card)} device kernels, "
-        f"{sum('sintax' in e.get('name', '') for e in on_card)} of them kernel 3) written")
+        f"{sum('sintax_rows_kernel' in e.get('name', '') for e in on_card)} of them kernel 3, "
+        f"{sum('sintax_ref_kmers_kernel' in e.get('name', '') for e in on_card)} kernel 6) written")
     out["profile_kernels"] = len(on_card)
     cli_counted("export", "export", "-i", str(work / "mesh"), str(work / "host"), "-o",
                 str(work / "export"), "--relabel", *EXPORT_LABELS)
@@ -1614,6 +1891,18 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
         f"host runs' pinned digests")
     n_edge = check_sintax_edges()
     log(f"  kernel 3: {n_edge} edge cases exact")
+    n_ref = check_sintax_ref_kmers()
+    log(f"  kernel 6: {n_ref} cases exact")
+    from savont_tpu_torch.io.fastx import read_fastx
+    from savont_tpu_torch.pipeline.sintax import CHUNK_ROWS
+
+    refs = []
+    for rec in read_fastx(str(db_dir / "species_taxid.fasta")):
+        refs.append(rec.seq)
+        if len(refs) == CHUNK_ROWS:
+            break
+    out["sintax_ref_kmers"] = sintax_ref_cell(refs, "the classification database")
+    out["sintax_route"] = sintax_route_check(db_dir, work / "mesh" / "final_asvs.fasta")
     both = work / "mesh_hard"
     both.mkdir()
     (both / "final_asvs.fasta").write_bytes(b"".join(
@@ -2181,13 +2470,16 @@ def scale_phase(work: Path, int32_ops_per_s: float) -> dict:
     r = cli_counted("scale sintax", "sintax", "-i", str(d / "asv"), "-o", str(d / "sintax"), "-d",
                     str(db_dir), "--device", "cuda")
     sx, n_launch = r["sintax"], r["sintax_launches"]["sintax_scores"]
-    if sx["refs"] != SCALE_DB_REFS or n_launch < math.ceil(SCALE_DB_REFS / CHUNK_ROWS):
+    if sx["refs"] != SCALE_DB_REFS or n_launch < math.ceil(SCALE_DB_REFS / CHUNK_ROWS) or \
+            r["sintax_launches"]["sintax_ref_kmers"] != n_launch or \
+            sx["kmer_rows_card"] != sx["refs"]:
         raise AssertionError(f"scale sintax: {sx['refs']} references in {n_launch} launches of "
-                             f"kernel 3, not {SCALE_DB_REFS} in "
-                             f"{math.ceil(SCALE_DB_REFS / CHUNK_ROWS)}: {r}")
-    log(f"scale sintax: {sx['refs']} references in {n_launch} launches of kernel 3 (chunks of "
-        f"{CHUNK_ROWS}); route {sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it extracting the "
-        f"references' k-mers on the host) of {r['wall_s']:.3f} s wall, kernel 3 "
+                             f"kernels 6 and 3, not {SCALE_DB_REFS} in "
+                             f"{math.ceil(SCALE_DB_REFS / CHUNK_ROWS)}, all rows on the card: {r}")
+    log(f"scale sintax: {sx['refs']} references, all rows extracted on the card, in {n_launch} "
+        f"launches each of kernels 6 and 3 (chunks of {CHUNK_ROWS}); route {sx['seconds']:.3f} s "
+        f"({sx['kmers_s']:.3f} s of it reading and joining the references on the host, "
+        f"{sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall, kernels 6 + 3 "
         f"{sx['kernel_ms']:.3f} device ms")
     cls["sintax"] = r
     got = {rel: hashlib.sha256((d / rel).read_bytes()).hexdigest()
@@ -2720,6 +3012,14 @@ def main() -> int:
                      "shapes": k3,
                      "scale": {"launches": sc["classification"]["sintax"]["sintax_launches"][name],
                                **sc[name]}}
+        elif name == "sintax_ref_kmers":
+            # the classification database's first chunk; launches: phase 6's
+            # sintax run, and the scale run's beside them
+            r = cls[name]
+            entry = {"launches": cls["sintax"]["sintax_launches"][name],
+                     **{k: r[k] for k in ("max_abs_err", "ms", "single_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "shape")},
+                     "scale": {"launches": sc["classification"]["sintax"]["sintax_launches"][name]}}
         elif name in ("split_kmers", "syncmers"):
             # launches: the asv --stage1-backend mesh run's, 0 for kernel 5,
             # which is on no path (as in the JAX package); the kernel cell's

@@ -80,6 +80,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, i,            # kmers, row_off, ridx, R
         p, p,                  # acc, stream
     ]
+    lib.sintax_ref_kmers_launch.restype = i
+    lib.sintax_ref_kmers_launch.argtypes = [
+        p, ctypes.c_longlong,  # seqs, B
+        p, p, i, i,            # off, row_off, R, max_n
+        p, p,                  # kmers, stream
+    ]
+    lib.sintax_ref_kmers_smem_cap.restype = i
+    lib.sintax_ref_kmers_smem_cap.argtypes = []
     lib.split_kmers_launch.restype = i
     lib.split_kmers_launch.argtypes = [
         p, p, p, p,            # codes, phred, off, out_off

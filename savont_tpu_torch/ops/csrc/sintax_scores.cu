@@ -17,7 +17,9 @@
 //   pairs (M,) int32  one pair id per live slot (duplicates kept), ascending
 //                     within a key
 //   kmers (N,) int32  the chunk's reference rows back to back, each row's
-//                     unique k-mers (below 2^24); row_off (R+1,) int64
+//                     unique k-mers (below 2^24), then ROW_PAD (0x7FFFFFFF,
+//                     a miss) to the row's capacity (kernel 6's rows,
+//                     sintax_ref_kmers.cu); row_off (R+1,) int64
 //   ridx (R,) int32   each row's ordinal among the kept references (< 2^26)
 //
 // What bounds it: bytes.  The function reads the rows once (at the

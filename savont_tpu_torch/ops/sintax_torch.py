@@ -1,5 +1,14 @@
-"""SINTAX scores on the card (kernel 3, csrc/sintax_scores.cu) and its plain
-PyTorch version.
+"""SINTAX on the card: the references' k-mers (kernel 6,
+csrc/sintax_ref_kmers.cu), the scores (kernel 3, csrc/sintax_scores.cu),
+and their plain PyTorch versions.
+
+Kernel 6 has no counterpart in the JAX package, which extracts each
+reference's k-mers on the host (pipeline/sintax.py, np.unique of
+extract_kmers).  `sintax_ref_kmers(rows)` takes a chunk's references back to
+back (`ref_rows` joins them on the host, `ref_rows_on` uploads them) and
+gives each row its capacity of max(len - 11, 0) values: its sorted unique
+canonical 12-mers, then ROW_PAD, the layout the lower entry of kernel 3
+reads.
 
 Counterpart in the JAX package: parallel/mesh.py sharded_sintax_scores, the
 XLA step of its device route (SAVONT_SINTAX_BACKEND=jax), on one device.
@@ -16,7 +25,8 @@ Two entries compute it:
 - `sintax_scores_rows(index, kmers, row_off, ridx, acc)`, what the sintax
   route calls: the run's query index (`query_index`, the host stream's CSR
   form: sorted distinct query k-mers, offsets, a pair id per live slot) and
-  the chunk's rows back to back (`ragged_rows`).
+  the chunk's rows back to back (`ragged_rows`, or kernel 6's rows, whose
+  pads count as misses).
 Each runs the plain version only for tensors on the CPU, and for CUDA
 tensors launches the kernel or raises.  `sintax_scores_dense` is the
 one-shot PyTorch composition over padded rows (torch.searchsorted of every
@@ -37,19 +47,29 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .align_torch import timed_launch
 from .build import build_kernels
+from .kmers_torch import _pack
 
-LAUNCHES = {"sintax_scores": 0}
-REFERENCE_CALLS = {"sintax_scores": 0}
+LAUNCHES = {"sintax_scores": 0, "sintax_ref_kmers": 0}
+REFERENCE_CALLS = {"sintax_scores": 0, "sintax_ref_kmers": 0}
 
 SLOTS = 32                   # subsampled k-mers per pair (constants.SINTAX_SUBSAMPLE)
+K = 12                       # the k-mers' length (constants.SINTAX_K)
 ROW_PAD = 0x7FFFFFFF         # past a row's last k-mer: above every k-mer and slot
 QUERY_SENTINEL = 0x7FFFFFFE  # the slots of a k-mer-less ASV: equal to no row value
 ORD_MASK = 0x3FFFFFF
 INT32_MAX = 0x7FFFFFFF
 PLAIN_COUNTS = 1 << 24       # (row, pair) counts per step of the plain version
 PLAIN_ELEMENTS = 1 << 24     # searches per step of the dense composition
+
+
+# a byte's 2-bit code (pipeline/sintax._BYTE_CODE): A/a 0, C/c 1, G/g 2,
+# T/t/U/u 3, any other byte 0
+BYTE_CODE = torch.zeros(256, dtype=torch.int64)
+for _bases, _code in ((b"Cc", 1), (b"Gg", 2), (b"TtUu", 3)):
+    BYTE_CODE[list(_bases)] = _code
 
 
 class QueryIndex(NamedTuple):
@@ -114,6 +134,44 @@ def ragged_rows(rows: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     np.cumsum([len(a) for a in rows], out=row_off[1:])
     kmers = np.concatenate(rows).astype(np.int32) if rows else np.zeros(0, np.int32)
     return kmers, row_off
+
+
+class RefRows(NamedTuple):
+    """A chunk's references back to back on a device, with kernel 6's
+    output layout."""
+    seqs: torch.Tensor     # (B,) uint8, their bytes
+    off: torch.Tensor      # (R + 1,) int64, reference r = seqs[off[r]:off[r + 1]]
+    row_off: torch.Tensor  # (R + 1,) int64, row r's capacity max(len - 11, 0) summed
+    max_n: int             # the largest capacity
+    n_kmers: int           # row_off[R]
+
+
+def ref_rows(seqs: list[bytes]) -> tuple[bytearray, np.ndarray, np.ndarray]:
+    """The host's share of kernel 6's input: the references' bytes joined,
+    off (R + 1,) int64 byte offsets and row_off (R + 1,) int64, the rows'
+    capacities max(len - 11, 0) summed."""
+    lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+    off = np.zeros(len(seqs) + 1, dtype=np.int64)
+    row_off = np.zeros(len(seqs) + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    np.cumsum(np.maximum(lens - (K - 1), 0), out=row_off[1:])
+    return bytearray().join(seqs), off, row_off
+
+
+def ref_rows_on(joined, off: np.ndarray, row_off: np.ndarray, device) -> RefRows:
+    """ref_rows' arrays as a RefRows on `device` (one upload each); "cuda"
+    without a card raises."""
+    device = resolve_device(device)
+    caps = np.diff(row_off)
+    if off[0] != 0 or row_off[0] != 0 or len(joined) != off[-1] or \
+            not np.array_equal(caps, np.maximum(np.diff(off) - (K - 1), 0)):
+        raise ValueError("ref rows: off must span the bytes, and row_off from 0 hold "
+                         "max(len - 11, 0) a row")
+    u8 = torch.uint8
+    seqs = torch.frombuffer(joined, dtype=u8) if len(joined) else torch.zeros(0, dtype=u8)
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    return RefRows(seqs.to(device), as_t(off), as_t(row_off), int(caps.max(initial=0)),
+                   int(row_off[-1]))
 
 
 def _check(named, device) -> None:
@@ -205,6 +263,68 @@ def sintax_scores_rows_launch(index: QueryIndex, kmers, row_off, ridx, acc) -> t
         raise RuntimeError(f"sintax_scores kernel launch failed: CUDA error {rc}")
     LAUNCHES["sintax_scores"] += 1
     return acc
+
+
+def sintax_ref_kmers(rows: RefRows) -> torch.Tensor:
+    """Each reference row's sorted unique canonical 12-mers, then ROW_PAD to
+    its capacity: kmers (rows.n_kmers,) int32, row r at
+    rows.row_off[r]:rows.row_off[r + 1], the lower entry's layout.  A row
+    equals np.unique(extract_kmers(seq.upper())) of pipeline/sintax, padded.
+    CPU tensors take the plain PyTorch version; CUDA tensors launch kernel 6
+    or raise."""
+    _check((("seqs", rows.seqs, 1, torch.uint8), ("off", rows.off, 1, torch.int64),
+            ("row_off", rows.row_off, 1, torch.int64)), rows.seqs.device)
+    if rows.off.shape[0] < 1 or rows.row_off.shape[0] != rows.off.shape[0] or \
+            not 0 <= rows.max_n <= INT32_MAX or rows.off.shape[0] - 1 > INT32_MAX:
+        raise ValueError(f"ref rows: off {tuple(rows.off.shape)} and row_off "
+                         f"{tuple(rows.row_off.shape)} need one entry a row and one more, "
+                         f"rows and capacities below 2^31 (max_n {rows.max_n})")
+    dev = rows.seqs.device
+    if dev.type == "cpu":
+        REFERENCE_CALLS["sintax_ref_kmers"] += 1
+        return sintax_ref_kmers_reference(rows)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return sintax_ref_kmers_launch(rows, torch.empty(rows.n_kmers, dtype=torch.int32, device=dev))
+
+
+def sintax_ref_kmers_launch(rows: RefRows, out: torch.Tensor) -> torch.Tensor:
+    """Launch kernel 6 into out (rows.n_kmers int32) without checking: what
+    a timing queues back to back."""
+    if out.device.type != "cuda":
+        raise ValueError(f"sintax_ref_kmers_launch needs CUDA tensors, got {out.device}")
+    lib = build_kernels()
+    with timed_launch(out.device):
+        rc = lib.sintax_ref_kmers_launch(
+            rows.seqs.data_ptr(), rows.seqs.shape[0], rows.off.data_ptr(), rows.row_off.data_ptr(),
+            rows.off.shape[0] - 1, rows.max_n, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sintax_ref_kmers kernel launch failed: CUDA error {rc}")
+    LAUNCHES["sintax_ref_kmers"] += 1
+    return out
+
+
+def sintax_ref_kmers_reference(rows: RefRows) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: every position's forward and
+    reverse-complement 12-mers (kmers_torch._pack over the bytes' codes),
+    their minimum keyed by its row, torch.unique of the keys (sorted), and
+    each row's distinct k-mers at the front of its capacity, on the rows'
+    device.  The same function as the kernel, bit for bit."""
+    seqs, off, row_off, _, n = rows
+    dev = seqs.device
+    out = torch.full((n,), ROW_PAD, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    R = off.shape[0] - 1
+    row = torch.repeat_interleave(torch.arange(R, device=dev), row_off[1:] - row_off[:-1])
+    start = off[:-1][row] + torch.arange(n, device=dev) - row_off[:-1][row]
+    fwd, rev = _pack(BYTE_CODE.to(dev)[seqs.long()], start, K)
+    key = torch.unique((row << 2 * K) | torch.minimum(fwd, rev))
+    krow = key >> 2 * K
+    rank = torch.arange(key.shape[0], device=dev) - torch.searchsorted(key, krow << 2 * K)
+    out[row_off[krow] + rank] = (key & ((1 << 2 * K) - 1)).to(torch.int32)
+    return out
 
 
 def _store_keys(acc: torch.Tensor, best: torch.Tensor) -> torch.Tensor:

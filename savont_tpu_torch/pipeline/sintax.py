@@ -1,8 +1,9 @@
 """`sintax` subcommand: k-mer bootstrap genus-level classification
 (sintax.rs).  Phase 2, the scores of every (ASV, iteration) pair against
-every reference, runs on the chosen device through kernel 3
-(ops/sintax_torch.py): the references stream in chunks of rows, the keys
-are max'ed on the device and fetched once; over the ranks of a process
+every reference, runs on the chosen device through kernels 6 and 3
+(ops/sintax_torch.py): the references stream in chunks, kernel 6 turns
+each chunk's bytes into rows of k-mers, kernel 3 max's the keys on the
+device, and they are fetched once; over the ranks of a process
 group (parallel/distributed.py) each rank takes its share of the references
 and one all_reduce joins the keys.  _host_scores, the host stream of the
 reference, is kept as the test oracle."""
@@ -22,24 +23,26 @@ from ..io.fastx import read_fastx
 from ..parallel import distributed
 from ..ops.align_torch import events_ms, kernel_events
 from ..ops.sintax_torch import (
-    index_on, keys_int64, query_index, ragged_rows, sintax_scores_rows,
+    index_on, keys_int64, query_index, ref_rows, ref_rows_on, sintax_ref_kmers, sintax_scores_rows,
 )
 from ..tracing import Laps, span
 
 log = logging.getLogger("savont")
 
-CHUNK_ROWS = 4096  # references per launch of kernel 3
+CHUNK_ROWS = 4096  # references per launch of kernels 6 and 3
 ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
 # the device scores' counters: calls, kept references scored on this rank
-# (those with k-mers), wall seconds inside, and of them in the host's k-mer
-# extraction of the references (kmers_s, a span "sintax:extract" a chunk of
+# (those with k-mers), wall seconds inside, and of them in the host's share
+# of the references' k-mers (kmers_s, a span "sintax:extract" a chunk of
 # CHUNK_ROWS references: the FASTA stream, key and taxonomy lookups,
-# parse_s; extract_kmers and np.unique, extract_s) and in the chunks'
-# flushes (flush_s, span "sintax:flush": ragged rows, uploads, kernel-3
-# launches), and device milliseconds of the launches (CUDA events read
-# after the one fetch; 0.0 on the CPU)
+# parse_s; the chunk's bytes joined and its offsets, extract_s) and in the
+# chunks' flushes (flush_s, span "sintax:flush": uploads, kernel-6 and
+# kernel-3 launches), the rows whose k-mers kernel 6 extracted on the card
+# (kmer_rows_card: refs on the card, 0 on the CPU), and device milliseconds
+# of the launches of kernels 6 and 3 (CUDA events read after the one fetch;
+# 0.0 on the CPU)
 SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "parse_s": 0.0,
-               "extract_s": 0.0, "flush_s": 0.0, "kernel_ms": 0.0}
+               "extract_s": 0.0, "flush_s": 0.0, "kmer_rows_card": 0, "kernel_ms": 0.0}
 
 QUERY_SENTINEL = np.uint32(0xFFFFFFFE)
 _BYTE_CODE = np.zeros(256, dtype=np.uint32)
@@ -153,13 +156,14 @@ def _host_scores(subs: np.ndarray, sentinel: np.uint32, db: tax.Database, n_pair
 
 def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
     """Phase 2 on `device`: the query index is built once and uploaded
-    once; the references stream once, in chunks of CHUNK_ROWS rows of their
-    sorted unique k-mers (back to back, no padding), through kernel 3, which
-    max's each pair's packed key (score, earliest reference by record
-    index) into one accumulator on the device; one fetch at the end.  Under
-    a process group each rank extracts and scores every world-th record and
-    the ranks' keys are max'ed with one all_reduce before the fetch (the
-    reference's pmax over its mesh).  Equal to the host stream
+    once; the references stream once, in chunks of CHUNK_ROWS, their bytes
+    joined on the host; on the device kernel 6 turns a chunk into rows of
+    each reference's sorted unique k-mers (padded with misses to the row's
+    capacity), and kernel 3 max's each pair's packed key (score, earliest
+    reference by record index) into one accumulator; one fetch at the end.
+    Under a process group each rank extracts and scores every world-th
+    record and the ranks' keys are max'ed with one all_reduce before the
+    fetch (the reference's pmax over its mesh).  Equal to the host stream
     (_host_scores) and to the JAX package's mesh step, bit for bit."""
     stats = SCORE_STATS
     stats["calls"] += 1
@@ -177,13 +181,15 @@ def _scores_on(subs, db, n_pairs, dev, stats):
     # its ordinal in the keys: the same on every rank, and in stream order,
     # so the earliest reference still wins a tie
     entries: dict[int, tax.TaxonomyEntry] = {}
-    pend_k: list[np.ndarray] = []
+    pend_s: list[bytes] = []
     pend_r: list[int] = []
+    chunk: list = []  # ref_rows of pend_s, once extract has joined them
     n_ranks, my_rank = distributed.world(), distributed.rank()
 
     def extract(records) -> None:
-        """The next chunk's references into pend_k / pend_r: up to CHUNK_ROWS
-        of them, or to the end of the stream."""
+        """The next chunk's references into pend_s / pend_r, up to
+        CHUNK_ROWS of them or to the end of the stream, then joined into
+        chunk."""
         lap = Laps(stats)
         for n, rec in records:
             if n > ORDINAL_MAX:
@@ -196,35 +202,36 @@ def _scores_on(subs, db, n_pairs, dev, stats):
             if entry is None:
                 continue
             entries[n] = entry
-            # the rank's references: every n_ranks-th record (all of them
-            # without a process group)
-            if n % n_ranks == my_rank:
-                lap("parse_s")
-                ref_kmers = np.unique(extract_kmers(rec.seq.upper()))
-                lap("extract_s")
-                if len(ref_kmers):
-                    pend_k.append(ref_kmers)
-                    pend_r.append(n)
+            # the rank's references with a k-mer: every n_ranks-th record (all
+            # of them without a process group)
+            if n % n_ranks == my_rank and len(rec.seq) >= SINTAX_K:
+                pend_s.append(rec.seq)
+                pend_r.append(n)
             if (n + 1) % 10000 == 0:
                 log.info("Processed %d reference sequences...", n + 1)
-            if len(pend_k) == CHUNK_ROWS:
+            if len(pend_s) == CHUNK_ROWS:
                 break
         lap("parse_s")
+        if pend_s:
+            chunk[:] = ref_rows(pend_s)
+            lap("extract_s")
 
     def flush():
-        kmers, row_off = ragged_rows(pend_k)
-        ridx = np.asarray(pend_r, dtype=np.int32)
-        sintax_scores_rows(index, torch.from_numpy(kmers).to(dev), torch.from_numpy(row_off).to(dev),
-                           torch.from_numpy(ridx).to(dev), acc)
-        stats["refs"] += len(pend_k)
-        pend_k.clear()
+        rows = ref_rows_on(*chunk, dev)
+        kmers = sintax_ref_kmers(rows)
+        ridx = torch.from_numpy(np.asarray(pend_r, dtype=np.int32)).to(dev)
+        sintax_scores_rows(index, kmers, rows.row_off, ridx, acc)
+        stats["refs"] += len(pend_s)
+        if kmers.is_cuda:
+            stats["kmer_rows_card"] += len(pend_s)
+        pend_s.clear()
         pend_r.clear()
 
     records = enumerate(read_fastx(str(db.fasta_path)))
     while True:
         with span("sintax:extract", stats, "kmers_s"):
             extract(records)
-        if not pend_k:
+        if not pend_s:
             break
         with span("sintax:flush", stats, "flush_s"):
             flush()

@@ -1,7 +1,10 @@
 """The port's sintax against the JAX package, on the CPU.
 
-Kernel 3's plain version (ops/sintax_torch.py), through its public entry
-and through the route's lower entry (the query index, ragged rows), is
+Kernel 6's plain version (the references' rows of k-mers) is held to the
+host extraction it took over, np.unique(extract_kmers(seq.upper())), over
+chip_smoke's cases for kernel 6.  Kernel 3's plain version
+(ops/sintax_torch.py), through its public entry and through the route's
+lower entry (the query index, ragged rows), is
 held to the JAX package's mesh step sharded_sintax_scores on a one-device
 CPU mesh, over chip_smoke's edge cases (the inputs the card run holds the
 kernel to), and the port's device scores to the host stream _host_scores; the port's
@@ -22,6 +25,7 @@ from savont_tpu.parallel.mesh import make_mesh, sharded_sintax_scores
 from savont_tpu.pipeline import sintax as jax_sintax
 from savont_tpu_torch.config import SintaxArgs
 from savont_tpu_torch.db import registry
+from savont_tpu_torch.io.fastx import read_fastx
 from savont_tpu_torch.ops import sintax_torch
 from savont_tpu_torch.ops.encode import revcomp_bytes
 from savont_tpu_torch.pipeline import sintax as port_sintax
@@ -31,6 +35,7 @@ from _torch_jobs import graded_refs, rand_seq, read_outputs, substitute, write_a
 
 OUTPUTS = ("genus_abundance.tsv", "asv_mappings.tsv")
 N_EDGE = len(chip_smoke.sintax_edge_cases())
+N_REF = len(chip_smoke.sintax_ref_cases())
 
 
 def _jax_keys(case) -> np.ndarray:
@@ -80,18 +85,25 @@ def test_kernel3_plain_equals_jax_mesh_step(k):
 def test_kernel3_rows_plain_equals_jax_mesh_step(k):
     """The lower entry's plain version on what the route gives it: the host
     stream's CSR (query_index on the uint32 query matrix, as _host_scores
-    builds it) and each chunk's rows with the padding stripped."""
+    builds it) and each chunk's rows with the padding stripped, and with it
+    kept (kernel 6's layout: unique k-mers, then ROW_PAD to the row's
+    capacity, each pad a miss)."""
     case = chip_smoke.sintax_edge_cases()[k]
     index = sintax_torch.index_on(*sintax_torch.query_index(case["queries"], np.uint32(0xFFFFFFFE)),
                                   len(case["queries"]), "cpu")
     acc = torch.zeros(len(case["queries"]), dtype=torch.int32)
+    padded = torch.zeros_like(acc)
     for r0 in range(0, len(case["refk"]), case["chunk"]):
+        ridx = torch.from_numpy(case["ridx"][r0 : r0 + case["chunk"]].astype(np.int32))
         rows = [r[r != 0xFFFFFFFF] for r in case["refk"][r0 : r0 + case["chunk"]]]
         kmers, row_off = sintax_torch.ragged_rows(rows)
         sintax_torch.sintax_scores_rows(index, torch.from_numpy(kmers), torch.from_numpy(row_off),
-                                        torch.from_numpy(case["ridx"][r0 : r0 + case["chunk"]]
-                                                         .astype(np.int32)), acc)
+                                        ridx, acc)
+        part = sintax_torch.kernel_kmers(case["refk"][r0 : r0 + case["chunk"]])
+        sintax_torch.sintax_scores_rows(index, torch.from_numpy(part.reshape(-1)),
+                                        torch.arange(len(part) + 1) * part.shape[1], ridx, padded)
     assert np.array_equal(sintax_torch.keys_int64(acc).numpy(), _jax_keys(case)), case["name"]
+    assert torch.equal(padded, acc), case["name"]
 
 
 def test_edge_cases_reach_the_kernels_limits():
@@ -229,14 +241,28 @@ def _edge_db(tmp_path, seed: int):
     return tmp_path / "db", asvs
 
 
+def _kept_refs(db) -> int:
+    """The database's references the host stream scores: a key, a taxon and
+    a k-mer (12 bases or more)."""
+    return sum(1 for rec in read_fastx(str(db.fasta_path))
+               if (key := db.extract_key(rec.id)) is not None and db.taxonomy.get(key) is not None
+               and len(rec.seq) >= 12)
+
+
 def test_device_scores_equal_host_stream(tmp_path, monkeypatch):
     """The port's device scores, in chunks of 4 references so that ties fall
-    across launches, against the host stream of the same package."""
+    across launches, against the host stream of the same package; every
+    kept reference with a k-mer scored, none of its rows extracted on a
+    card."""
     db_dir, asvs = _edge_db(tmp_path, 81)
     db = registry.load_database(db_dir)
     subs = port_sintax.query_matrix(asvs, 20)
     monkeypatch.setattr(port_sintax, "CHUNK_ROWS", 4)
+    for k in ("refs", "kmer_rows_card"):
+        monkeypatch.setitem(port_sintax.SCORE_STATS, k, 0)
     dev_scores, dev_tax = port_sintax._device_scores(subs, db, len(subs), "cpu")
+    assert port_sintax.SCORE_STATS["refs"] == _kept_refs(db) > 0
+    assert port_sintax.SCORE_STATS["kmer_rows_card"] == 0
     host_scores, host_tax = port_sintax._host_scores(subs, port_sintax.QUERY_SENTINEL, db, len(subs))
     assert np.array_equal(dev_scores, host_scores)
     assert [None if e is None else dataclasses.astuple(e) for e in dev_tax] == \
@@ -266,3 +292,109 @@ def test_extract_kmers_and_xorshift_equal_jax():
     for seed in (0, 1, 42, 2**63 + 5):
         a, b = port_sintax.Xorshift(seed), jax_sintax.Xorshift(seed)
         assert [a.next_usize(97) for _ in range(50)] == [b.next_usize(97) for _ in range(50)]
+
+
+@pytest.fixture(scope="module")
+def ref_cases():
+    return chip_smoke.sintax_ref_cases()
+
+
+def _host_rows(seqs) -> list[np.ndarray]:
+    """Each reference's row as the host extracted it before kernel 6:
+    np.unique(extract_kmers(seq.upper())), then ROW_PAD to its capacity of
+    max(len - 11, 0)."""
+    rows = []
+    for seq in seqs:
+        row = np.full(max(len(seq) - 11, 0), sintax_torch.ROW_PAD, dtype=np.int32)
+        u = np.unique(port_sintax.extract_kmers(seq.upper()))
+        row[: len(u)] = u
+        rows.append(row)
+    return rows
+
+
+def _code(kmer: bytes) -> int:
+    return int(port_sintax.extract_kmers(kmer)[0])
+
+
+@pytest.mark.parametrize("k", range(N_REF))
+def test_kernel6_plain_equals_host_extraction(ref_cases, k):
+    """Kernel 6's plain version, on each of the card's cases, gives every
+    reference the host's sorted unique canonical 12-mers followed by
+    ROW_PAD, at row_off, the cumulative capacities."""
+    case = ref_cases[k]
+    seqs = case["seqs"]
+    joined, off, row_off = sintax_torch.ref_rows(seqs)
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    assert bytes(joined) == b"".join(seqs)
+    assert np.array_equal(off, np.concatenate(([0], np.cumsum(lens))))
+    assert np.array_equal(row_off, np.concatenate(([0], np.cumsum(np.maximum(lens - 11, 0)))))
+    calls = sintax_torch.REFERENCE_CALLS["sintax_ref_kmers"]
+    got = sintax_torch.sintax_ref_kmers(sintax_torch.ref_rows_on(joined, off, row_off, "cpu"))
+    assert sintax_torch.REFERENCE_CALLS["sintax_ref_kmers"] == calls + 1
+    assert got.dtype == torch.int32 and got.shape == (row_off[-1],)
+    rows = [got[row_off[r] : row_off[r + 1]].numpy() for r in range(len(seqs))]
+    for r, (g, w) in enumerate(zip(rows, _host_rows(seqs))):
+        assert np.array_equal(g, w), (case["name"], r)
+    name = case["name"]
+    if name == "bytes":
+        assert set(joined) == set(range(256))
+    if name == "lengths":
+        assert [len(r) for r in rows] == [0, 0, 0, 1, 2, 0, 1, 3, 29, 0, 1]
+        assert rows[6][0] == 0  # N encodes as A: NNNNNNNNNNNN is AAAAAAAAAAAA
+    if name == "repeats":
+        assert rows[0].tolist() == [0] + [sintax_torch.ROW_PAD] * 488
+        assert (rows[1] != sintax_torch.ROW_PAD).sum() == 1 and (rows[4] != sintax_torch.ROW_PAD).sum() == 2
+    if name == "revcomp":
+        assert all(np.array_equal(rows[0], rows[i]) for i in (1, 2, 3))
+    if name == "palindromes":
+        assert rows[0].tolist() == [_code(b"AAACCCGGGTTT")]
+        assert _code(b"AAACCCGGGTTT") == _code(revcomp_bytes(b"AAACCCGGGTTT"))
+    if name == "tile_edges":
+        assert [len(r) for r in rows[:6]] == [2047, 2048, 2049, 4096, 4097, 6143]
+    if name == "emu_chunk":
+        assert len(rows) == 4096 and 1330 <= lens.min() and lens.max() <= 1570
+    if name == "long_rows":
+        assert lens.max() - 11 > 2 * 57_000 and (rows[6] != sintax_torch.ROW_PAD).sum() <= 997
+
+
+def test_kernel6_byte_code_equals_host_table():
+    """The table the plain version encodes through (and the kernel's, in
+    sintax_ref_kmers.cu) is the host's, for every byte."""
+    assert np.array_equal(sintax_torch.BYTE_CODE.numpy(), port_sintax._BYTE_CODE.astype(np.int64))
+
+
+def test_kernel6_tile_matches_source():
+    """chip_smoke's SINTAX_REF_TILE is the kernel's kTile, and the plain
+    version's K its kK."""
+    src = (Path(chip_smoke.__file__).parent / "savont_tpu_torch/ops/csrc/sintax_ref_kmers.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kTile"] == chip_smoke.SINTAX_REF_TILE and const["kK"] == sintax_torch.K == 12
+
+
+def test_kernel6_wrapper_checks():
+    joined, off, row_off = sintax_torch.ref_rows([b"ACGT" * 10, b"AC"])
+    with pytest.raises(ValueError, match="row_off"):
+        sintax_torch.ref_rows_on(joined, off, row_off + 1, "cpu")
+    rows = sintax_torch.ref_rows_on(joined, off, row_off, "cpu")
+    assert rows.max_n == 29 and rows.n_kmers == 29
+    with pytest.raises(ValueError, match="CUDA"):
+        sintax_torch.sintax_ref_kmers_launch(rows, torch.empty(29, dtype=torch.int32))
+    with pytest.raises(ValueError, match="uint8"):
+        sintax_torch.sintax_ref_kmers(rows._replace(seqs=rows.seqs.int()))
+    with pytest.raises(ValueError, match="one entry a row"):
+        sintax_torch.sintax_ref_kmers(rows._replace(row_off=rows.row_off[:-1].contiguous()))
+    empty = sintax_torch.ref_rows_on(*sintax_torch.ref_rows([]), "cpu")
+    assert sintax_torch.sintax_ref_kmers(empty).shape == (0,)
+
+
+def test_kernel6_card_route_without_card_raises(tmp_path):
+    """--device cuda never falls back to the plain versions: the chunk's
+    upload and the route raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the route runs there")
+    with pytest.raises(RuntimeError):
+        sintax_torch.ref_rows_on(*sintax_torch.ref_rows([b"ACGT" * 10]), "cuda")
+    db_dir, asvs = _edge_db(tmp_path, 86)
+    with pytest.raises(RuntimeError):
+        port_sintax._device_scores(port_sintax.query_matrix(asvs, 2), registry.load_database(db_dir),
+                                   len(asvs) * 2, "cuda")

@@ -224,12 +224,31 @@ def test_sintax_part_reader(name):
     assert read(_record("sintax_stats", {"kmers_s": 3.0}, 1)) is None
 
 
+def test_k6_device_reader():
+    """Kernel 6's device milliseconds a call, from the trace's operations:
+    three calls, 3 ms of kernel 6, 12 ms of kernel 3.  Each kernel's reader
+    counts its own kernel alone; a program without kernel 6, or a run
+    without a trace, gives nothing."""
+    from benchmark.trace import Summary
+
+    k6 = spec.load_module("metrics", "k6_device_ms.sintax").read
+    k3 = spec.load_module("metrics", "k3_device_ms.sintax").read
+    calls = [{"ok": True, "work": 1, "counters": {}}] * 3
+    ops = {"sintax_ref_kmers_kernel": 0.003, "sintax_rows_kernel": 0.012, "Memcpy_HtoD": 0.5}
+    rec = bench_run.Record(calls=calls, window_s=10.0, trace=Summary(10.0, 0.515, ops))
+    assert k6(rec) == pytest.approx(1.0) and k3(rec) == pytest.approx(4.0)
+    parent = {"sintax_rows_kernel": 0.012, "Memcpy_HtoD": 0.5}
+    assert k6(bench_run.Record(calls=calls, window_s=10.0, trace=Summary(10.0, 0.512, parent))) is None
+    assert k6(bench_run.Record(calls=calls, window_s=10.0)) is None
+
+
 def test_every_new_metric_is_declared():
     bench = json.loads((spec.HERE.parent / "BENCHMARK.json").read_text())
     declared = {m["name"]: m for m in bench["per_layer"]}
     for name in ASV_METRICS:
         assert declared[name]["workloads"] == ["operon.asv"]
         assert declared[name]["moves"] == "asv_reads_per_s"
-    for name in SINTAX_METRICS:
+    for name in (*SINTAX_METRICS, "k6_device_ms.sintax"):
         assert declared[name]["workloads"] == ["ont16s.sintax"]
         assert declared[name]["moves"] == "sintax_s"
+    assert declared["k6_device_ms.sintax"]["layer"] == "sintax host k-mer extraction"
