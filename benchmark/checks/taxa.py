@@ -1,19 +1,19 @@
 """The plain reference of classify and sintax (not a check of its own: no
 traffic names it).  Each input ASV takes the taxa of the database records
-that hold it with no edit (refio.Database.holding: the sample's templates are
-records of the database); a taxon's abundance is its ASVs' share of the
-input depth."""
+that hold it with no edit (refio.Records.holding over the records that the
+database format's plain reader, databases/<format>.py read(), gives: the
+sample's templates are records of the database); a taxon's abundance is its
+ASVs' share of the input depth."""
 from __future__ import annotations
 
 from collections import defaultdict
 from pathlib import Path
 
-from ..refio import Database, feature_depths, read_fasta
+from ..refio import Records, feature_depths, read_fasta
 
 
 class Reference:
-    def __init__(self, asv_dir: Path, emu_dir: Path):
-        db = Database(emu_dir)
+    def __init__(self, asv_dir: Path, db: Records):
         depths = feature_depths(asv_dir / "feature-table.tsv")
         self.asvs: dict[str, float] = {}
         self.species: dict[str, str] = {}
@@ -40,7 +40,7 @@ class Reference:
 def reference(setup) -> Reference:
     """The setup's reference, worked out once a run."""
     if getattr(setup, "taxa_reference", None) is None:
-        setup.taxa_reference = Reference(setup.asv_dir, setup.emu_dir)
+        setup.taxa_reference = Reference(setup.asv_dir, setup.db_format.read(setup.db_dir))
     return setup.taxa_reference
 
 

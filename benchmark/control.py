@@ -26,7 +26,7 @@ from .spec import HERE, load_cell
 def readings(runner: Runner, warm: bool) -> dict:
     runner.prepare()
     if warm:
-        runner.call(runner.work / "warm", runner.setup.warm_emu_dir)
+        runner.call(runner.work / "warm", runner.setup.warm_db_dir)
     c = runner.call(runner.work / "program")
     got = {"seed": runner.seed, "ok": c["ok"],
            "program": runner.check.judge(Path(c["out"]), runner.setup)}

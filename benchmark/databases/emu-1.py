@@ -1,8 +1,9 @@
-"""An EMU-format database of a sample's templates, made from the run's seed.
+"""An EMU-format database (emu-1) of a sample's templates, made from the
+run's seed, and its plain reader.
 
-A frozen copy of the port's db/synth.build_emu_slice: every template as a
-`seed_template<j>` record under its species, then graded decoys drawn from
-the templates: intra-species operon variants (0.3% substitutions, 0-1
+build() is a frozen copy of the port's db/synth.build_emu_slice: every
+template as a `seed_template<j>` record under its species, then graded decoys
+drawn from the templates: intra-species operon variants (0.3% substitutions, 0-1
 indels; 15% of the rest), sibling species of the genus (2-8%, 0-3 indels;
 35%), same-family relatives (10-20%, 2-7 indels; 30%) and background
 (shuffled, +-8% length, 25% substitutions).  One departure: the species of
@@ -17,7 +18,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .sample import BASES, Sample
+from benchmark.refio import Records, read_fasta, read_table
+from benchmark.sample import BASES, Sample
 
 TAXONOMY_HEADER = ("tax_id\tspecies\tgenus\tfamily\torder\tclass\tphylum\tclade\t"
                    "superkingdom\tsubspecies\tspecies subgroup\tspecies group\n")
@@ -40,7 +42,7 @@ def _mutate(rng, codes: np.ndarray, sub_rate: float, n_indels: int = 0) -> np.nd
     return out
 
 
-def build_db(sample: Sample, n_refs: int, rng, out_dir: Path) -> Path:
+def build(sample: Sample, n_refs: int, rng, out_dir: Path) -> Path:
     """Write out_dir/emu (species_taxid.fasta, taxonomy.tsv, .savont_db) and
     return that directory."""
     seed_codes = [np.searchsorted(BASES, np.frombuffer(t, np.uint8)).astype(np.uint8)
@@ -96,3 +98,13 @@ def build_db(sample: Sample, n_refs: int, rng, out_dir: Path) -> Path:
             f.write(tid + "\t" + "\t".join(row) + "\n")
     (out / ".savont_db").write_text("emu-1")
     return out
+
+
+def read(db_dir: Path) -> Records:
+    """The directory read plainly: a record's key is its header up to the
+    first ':', its species and genus that tax_id's row of taxonomy.tsv; a
+    record whose key has no row is skipped."""
+    rank = {r["tax_id"]: r for r in read_table(db_dir / "taxonomy.tsv")}
+    kept = [(rank[h.split(":", 1)[0]], s) for h, s in read_fasta(db_dir / "species_taxid.fasta")
+            if h.split(":", 1)[0] in rank]
+    return Records([s for _, s in kept], [r["species"] for r, _ in kept], [r["genus"] for r, _ in kept])

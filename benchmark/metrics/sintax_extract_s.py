@@ -1,4 +1,4 @@
-"""sintax's extract_kmers and np.unique of each reference: pipeline/sintax.SCORE_STATS["extract_s"], seconds a call."""
+"""sintax's join of each chunk's reference bases into one buffer and their row offsets, for kernel 6 on the card: pipeline/sintax.SCORE_STATS["extract_s"], seconds a call."""
 from benchmark import readers
 
 

@@ -2,6 +2,7 @@
 ground truth the checks compare them with.  Nothing here imports the port."""
 from __future__ import annotations
 
+import gzip
 from math import ceil
 from pathlib import Path
 
@@ -9,20 +10,15 @@ from .sample import revcomp
 
 
 def read_fasta(path: Path) -> list[tuple[str, bytes]]:
-    """(header line without '>', sequence upper-cased) in file order."""
+    """(header line without '>', sequence upper-cased) in file order; a
+    sequence may span lines, and a path ending in .gz is decompressed."""
+    with (gzip.open if path.suffix == ".gz" else open)(path, "rb") as f:
+        data = f.read()
     out: list[tuple[str, bytes]] = []
-    head, seq = None, []
-    with open(path, "rb") as f:
-        for line in f:
-            line = line.rstrip(b"\r\n")
-            if line.startswith(b">"):
-                if head is not None:
-                    out.append((head, b"".join(seq).upper()))
-                head, seq = line[1:].decode(), []
-            elif line:
-                seq.append(line)
-    if head is not None:
-        out.append((head, b"".join(seq).upper()))
+    for rec in (b"\n" + data).split(b"\n>")[1:]:
+        head, _, body = rec.partition(b"\n")
+        out.append((head.rstrip(b"\r").decode(),
+                    body.replace(b"\n", b"").replace(b"\r", b"").upper()))
     return out
 
 
@@ -61,21 +57,19 @@ def containing(seq: bytes, seqs: list[bytes], min_cover: float = MIN_COVER) -> l
             if len(seq) >= min_cover * len(t) and (seq in t or rc in t)]
 
 
-class Database:
-    """An EMU directory read plainly: each record's taxon, each taxon's
-    species and genus, and the records that hold a sequence.  A record of
-    length L can hold a sequence of at least MIN_COVER * L bases only where
-    the sequence covers its KEY bases from offset ceil((1 - MIN_COVER) * L),
-    so each record is indexed by that piece and a sequence looks up its own
-    first pieces."""
+class Records:
+    """A database's records as its format's plain reader gives them (each
+    record's sequence in the DNA alphabet, upper-cased, its species and its
+    genus), and the records that hold a sequence.  A record of length L can
+    hold a sequence of at least MIN_COVER * L bases only where the sequence
+    covers its KEY bases from offset ceil((1 - MIN_COVER) * L), so each
+    record is indexed by that piece and a sequence looks up its own first
+    pieces."""
 
     KEY = 32
 
-    def __init__(self, emu_dir: Path):
-        records = read_fasta(emu_dir / "species_taxid.fasta")
-        self.tax_of = [h.split()[0].split(":", 1)[0] for h, _ in records]
-        self.rank = {r["tax_id"]: r for r in read_table(emu_dir / "taxonomy.tsv")}
-        self.seqs = [s for _, s in records]
+    def __init__(self, seqs: list[bytes], species: list[str], genus: list[str]):
+        self.seqs, self.ranks = seqs, {"species": species, "genus": genus}
         self.keys: dict[bytes, list[int]] = {}
         for i, s in enumerate(self.seqs):
             o = ceil((1 - MIN_COVER) * len(s))
@@ -96,7 +90,7 @@ class Database:
 
     def taxa_holding(self, seq: bytes, rank: str) -> set[str]:
         """The `rank` names of every record that holds seq."""
-        return {self.rank[self.tax_of[i]][rank] for i in self.holding(seq)}
+        return {self.ranks[rank][i] for i in self.holding(seq)}
 
 
 def abundance_gap(got: dict[str, float], want: dict[str, float]) -> float:

@@ -3,7 +3,9 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout.  Set-up (`setup_s`, from the start of this
-process): the sample from the seed, the database and the ASV directory (the
+process): the sample from the seed, the database (in the configuration's
+`db_format`, emu-1 where it names none, written by
+benchmark/databases/<format>.py) and the ASV directory (the
 sample's templates, each with its read count as its depth) where the
 traffic needs them, and one untimed whole call of the cell's traffic, which
 builds or loads the kernels (build/ in the checkout), loads the native
@@ -66,8 +68,9 @@ def hold_threads(n: int, root: Path) -> None:
 class Setup:
     work: Path
     sample: object = None
-    emu_dir: Path | None = None
-    warm_emu_dir: Path | None = None  # the untimed call's database, where the traffic has its own
+    db_format: object = None  # databases/<format>.py: its writer (build) and plain reader (read)
+    db_dir: Path | None = None
+    warm_db_dir: Path | None = None  # the untimed call's database, where the traffic has its own
     asv_dir: Path | None = None
     taxa_reference: object = None
 
@@ -211,9 +214,10 @@ class Runner:
                                 fromlist=["judge"])
 
     # -- set-up -------------------------------------------------------------
-    def argv(self, sub: str, template: list, out: Path, emu_dir: Path | None = None) -> list[str]:
+    def argv(self, sub: str, template: list, out: Path, db_dir: Path | None = None) -> list[str]:
+        # the traffic files name the database directory `{emu_dir}`, whatever its format
         fill = {"reads": str(self.setup.sample.fastq), "out": str(out),
-                "asv_dir": str(self.setup.asv_dir), "emu_dir": str(emu_dir or self.setup.emu_dir)}
+                "asv_dir": str(self.setup.asv_dir), "emu_dir": str(db_dir or self.setup.db_dir)}
         return (["--log-level", "warn"] + [a.format(**fill) for a in template]
                 + ["-t", str(self.threads), "--device", self.device]
                 + list(self.cfg.get("args", {}).get(sub, [])))
@@ -225,29 +229,29 @@ class Runner:
 
     def prepare(self) -> None:
         """The inputs, made from the seed."""
-        from .emu_db import build_db
         from .sample import make_sample, rng_for, write_asv_dir
 
         s = self.setup
         s.sample = make_sample(self.cfg, self.seed, self.work / "sample")
         needs = self.traffic.get("needs", [])
         if "database" in needs:
-            s.emu_dir = build_db(s.sample, int(self.cfg["db_refs"]), rng_for(self.seed, 1),
-                                 self.work / "db")
+            s.db_format = load_module("databases", self.cfg.get("db_format", "emu-1"))
+            s.db_dir = s.db_format.build(s.sample, int(self.cfg["db_refs"]), rng_for(self.seed, 1),
+                                         self.work / "db")
             if "warm_db_refs" in self.traffic:
-                s.warm_emu_dir = build_db(s.sample, int(self.traffic["warm_db_refs"]),
-                                          rng_for(self.seed, 2), self.work / "warm_db")
+                s.warm_db_dir = s.db_format.build(s.sample, int(self.traffic["warm_db_refs"]),
+                                                  rng_for(self.seed, 2), self.work / "warm_db")
         if "asv_dir" in needs:
             s.asv_dir = write_asv_dir(s.sample, self.work / "asv")
 
-    def call(self, out: Path, emu_dir: Path | None = None) -> dict:
+    def call(self, out: Path, db_dir: Path | None = None) -> dict:
         counters = self.traffic.get("counters", {})
         _reset(counters)
         _fresh(self.traffic.get("fresh", []))
         sub = self.traffic["argv"][0]
         host = _host()
         try:
-            rc = self.cli(self.argv(sub, self.traffic["argv"], out, emu_dir))
+            rc = self.cli(self.argv(sub, self.traffic["argv"], out, db_dir))
         except Exception:  # noqa: BLE001 - a call that raises is a failed call; the run goes on
             traceback.print_exc()
             rc = -1
@@ -266,7 +270,7 @@ class Runner:
         if self.setup.sample is None:
             self.prepare()
         t_warm = time.perf_counter()
-        warm = self.call(self.work / "warm", self.setup.warm_emu_dir)
+        warm = self.call(self.work / "warm", self.setup.warm_db_dir)
         warm["wall_s"] = time.perf_counter() - t_warm
         if on_card:
             torch.cuda.synchronize()
@@ -315,7 +319,7 @@ class Runner:
         # where it ran against the cell's own database
         t_judge = time.perf_counter()
         checks = {}
-        for c in ([warm] if self.setup.warm_emu_dir is None else []) + calls:
+        for c in ([warm] if self.setup.warm_db_dir is None else []) + calls:
             for k, v in self.check.judge(Path(c["out"]), self.setup).items():
                 if k not in checks or v > checks[k][0]:
                     checks[k] = (v, self.check.LIMITS[k])

@@ -1,5 +1,6 @@
 """CPU tests of the checks that decide `correct`: on a tiny sample through
-the port's plain versions (`--device cpu`), a sound run comes out correct,
+the port's plain versions (`--device cpu`), with classify and sintax against
+an EMU-format and a SILVA-format database, a sound run comes out correct,
 and the control and each fault the cells can have come out not correct:
 a call that leaves its state unchanged (writes nothing), half of the batch
 left out, an answer altered where it is produced.  (No cell is on more than
@@ -24,17 +25,22 @@ TINY = {"n_reads": 240, "n_templates": 4, "db_refs": 120}
 SEED = 2**31 + 17
 
 
-def cell_of(traffic: str) -> Cell:
+def cell_of(traffic: str, db_format: str | None = None) -> Cell:
     cfg = json.loads((HERE / "configs" / "ont16s_emu.json").read_text())
     cfg.update(TINY)
+    if db_format:
+        cfg["db_format"] = db_format
     tr = json.loads((HERE / "traffic" / f"{traffic}.json").read_text())
     e2e = [{"name": k, "unit": "x"} for k in [*tr["reports"], "setup_s"]]
     return Cell(f"tiny.{traffic}", 1, "tiny", cfg, traffic, tr, e2e, [])
 
 
-@pytest.fixture(scope="module", params=["asv", "classify", "sintax"])
+@pytest.fixture(scope="module", params=[("asv", None), ("classify", None), ("sintax", None),
+                                        ("classify", "silva-138.2"), ("sintax", "silva-138.2")],
+                ids=["asv", "classify", "sintax", "classify-silva", "sintax-silva"])
 def runner(request, tmp_path_factory):
-    r = Runner(cell_of(request.param), SEED, "cpu", tmp_path_factory.mktemp(request.param))
+    traffic, db_format = request.param
+    r = Runner(cell_of(traffic, db_format), SEED, "cpu", tmp_path_factory.mktemp(traffic))
     r.prepare()
     yield r
     r.close()
@@ -165,6 +171,6 @@ def test_untimed_call_runs_against_the_traffics_warm_database(runner, monkeypatc
     assert run(runner, monkeypatch, spy)["correct"]
     s = runner.setup
     if "warm_db_refs" in runner.traffic:
-        assert dbs == [str(s.warm_emu_dir), str(s.emu_dir)] and s.warm_emu_dir != s.emu_dir
+        assert dbs == [str(s.warm_db_dir), str(s.db_dir)] and s.warm_db_dir != s.db_dir
     else:
-        assert s.warm_emu_dir is None and dbs == [None if s.emu_dir is None else str(s.emu_dir)] * 2
+        assert s.warm_db_dir is None and dbs == [None if s.db_dir is None else str(s.db_dir)] * 2
