@@ -221,14 +221,16 @@ def _dispatch(ns, level: str) -> int:
 
         out = Path(ns.output_dir) if ns.output_dir else Path(ns.input_dir)
         _setup_logging(level, out / f"savont_{ns.command}.log")
-        db = load_database(Path(ns.db))
         if ns.command == "classify":
             from .pipeline.classify import classify
 
-            classify(ClassifyArgs(**_fields(ns)), db)
+            classify(ClassifyArgs(**_fields(ns)), load_database(Path(ns.db)))
         else:
-            from .pipeline.sintax import sintax
+            from .pipeline.sintax import SCORE_STATS, sintax
+            from .tracing import span
 
+            with span("sintax:db_load", SCORE_STATS, "db_load_s"):
+                db = load_database(Path(ns.db))
             sintax(SintaxArgs(**_fields(ns)), db)
         return 0
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import gzip
 import logging
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -63,12 +64,12 @@ def extract_tax_id_from_header(header: str) -> str | None:
 
 
 def extract_silva_accession_from_header(header: str) -> str | None:
-    """SILVA: >AY846372.1.1779 ... -> AY846372."""
-    header = header.lstrip(">")
-    tok = header.split()
+    """SILVA: >AY846372.1.1779 ... -> AY846372.  Only the first token is
+    split off: the rest of a SILVA header is the whole taxonomy path."""
+    tok = header.lstrip(">").split(None, 1)
     if not tok:
         return None
-    return tok[0].split(".")[0]
+    return tok[0].partition(".")[0]
 
 
 def extract_gtdb_key_from_header(header: str) -> str | None:
@@ -128,24 +129,53 @@ def load_silva(db_dir: Path) -> Database:
         raise FileNotFoundError(f"No FASTA file found in {db_dir}")
     if taxmap is None:
         raise FileNotFoundError(f"No taxmap file found in {db_dir}")
-    taxonomy: dict[str, TaxonomyEntry] = {}
     with _open_text(taxmap) as f:
-        for i, line in enumerate(f):
-            if i == 0:
-                continue
-            fields = line.rstrip("\n").split("\t")
-            if len(fields) < 6:
-                continue
-            levels = [x.strip() for x in fields[3].split(";")]
+        return Database(fasta, SilvaTaxmap(f.read()), extract_silva_accession_from_header)
 
-            def lv(j):
-                return levels[j] if j < len(levels) else "UNKNOWN"
 
-            taxonomy[fields[0]] = TaxonomyEntry(
-                tax_id=fields[5], species=fields[4], genus=lv(5), family=lv(4),
-                order=lv(3), class_=lv(2), phylum=lv(1), superkingdom=lv(0),
-            )
-    return Database(fasta, taxonomy, extract_silva_accession_from_header)
+def _silva_entry(fields: list[str]) -> TaxonomyEntry:
+    """A TAXMAP line's fields (accession, start, stop, path, organism,
+    taxid) as the entry taxonomy.rs builds: the path's levels from the
+    domain down, "UNKNOWN" past its end."""
+    levels = [x.strip() for x in fields[3].split(";")]
+
+    def lv(j):
+        return levels[j] if j < len(levels) else "UNKNOWN"
+
+    return TaxonomyEntry(
+        tax_id=fields[5], species=fields[4], genus=lv(5), family=lv(4),
+        order=lv(3), class_=lv(2), phylum=lv(1), superkingdom=lv(0),
+    )
+
+
+class SilvaTaxmap(Mapping):
+    """SILVA's TAXMAP as a mapping from accession to TaxonomyEntry
+    (taxonomy.rs:105-205): after the header line, every line of six fields
+    or more, the last line of an accession winning.  An entry is built from
+    its line the first time it is asked for: a call classifies with the
+    entries of the references that win a pair, a few hundred of SILVA's
+    510,000 lines, and asks of the rest only whether they are there."""
+
+    def __init__(self, text: str):
+        self._lines = text.split("\n")
+        self._index = {line.partition("\t")[0]: i for i, line in enumerate(self._lines)
+                       if i > 0 and line.count("\t") >= 5}
+        self._entries: dict[str, TaxonomyEntry] = {}
+
+    def __getitem__(self, key: str) -> TaxonomyEntry:
+        e = self._entries.get(key)
+        if e is None:
+            e = self._entries[key] = _silva_entry(self._lines[self._index[key]].split("\t"))
+        return e
+
+    def __contains__(self, key) -> bool:
+        return key in self._index
+
+    def __iter__(self):
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)
 
 
 def _parse_prefixed_lineage(tax_str: str) -> dict[str, str]:

@@ -1,9 +1,10 @@
 """FASTQ/FASTA ingestion (the reference's needletail role, seq_parse.rs).
 
-Pure-Python host parser with gzip support.  The hot per-base work happens in
-vector kernels downstream, so parsing is IO-bound; a C++ extension
-(native/fastx.cpp) accelerates this path when built, with this module as the
-always-available fallback.
+Pure-Python host parser with gzip support.  A C++ extension
+(native/fastx.cpp) does the work when it builds: it inflates on a thread of
+its own and splits lines in large blocks, and the records reach Python in
+chunks; this module's parser is the fallback, and the yardstick the native
+one is held to.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ def _native_lib():
 
     from ..ops.native_build import build_extra
 
-    so = build_extra("fastx", extra_link=["-lz"])
+    so = build_extra("fastx", extra_link=["-lz", "-pthread"], extra_cflags=["-pthread"])
     if so is None:
         return None
     lib = ctypes.CDLL(str(so))
@@ -150,11 +151,12 @@ def read_fastx_records(path: str) -> list[FastxRecord]:
 
 
 def read_fastx(path: str):
-    """Yield FastxRecord from a FASTA/FASTQ(.gz) file (C++ parser when
-    available, pure-Python fallback otherwise)."""
-    lib = _native_lib()
-    if lib is not None:
-        yield from _read_fastx_native(lib, path)
+    """Yield FastxRecord from a FASTA/FASTQ(.gz) file as it is read: the C++
+    parser's chunks one record at a time where it builds, the pure-Python
+    parser's records otherwise."""
+    if _native_lib() is not None:
+        for recs in read_fastx_stream(path):
+            yield from recs
         return
     yield from _read_fastx_python(path)
 

@@ -19,7 +19,7 @@ from ..config import SintaxArgs
 from ..constants import ASV_FILE, SINTAX_K, SINTAX_SUBSAMPLE
 from ..db import taxonomy as tax
 from ..device import resolve_device
-from ..io.fastx import read_fastx
+from ..io.fastx import read_fastx, read_fastx_stream
 from ..parallel import distributed
 from ..ops.align_torch import events_ms, kernel_events
 from ..ops.sintax_torch import (
@@ -34,15 +34,21 @@ ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
 # the device scores' counters: calls, kept references scored on this rank
 # (those with k-mers), wall seconds inside, and of them in the host's share
 # of the references' k-mers (kmers_s, a span "sintax:extract" a chunk of
-# CHUNK_ROWS references: the FASTA stream, key and taxonomy lookups,
-# parse_s; the chunk's bytes joined and its offsets, extract_s) and in the
-# chunks' flushes (flush_s, span "sintax:flush": uploads, kernel-6 and
-# kernel-3 launches), the rows whose k-mers kernel 6 extracted on the card
-# (kmer_rows_card: refs on the card, 0 on the CPU), and device milliseconds
-# of the launches of kernels 6 and 3 (CUDA events read after the one fetch;
-# 0.0 on the CPU)
+# CHUNK_ROWS references: parse_s, the sum of the FASTA stream's chunks
+# read, read_s, span "sintax:read" a chunk, and the key and taxonomy
+# lookups, keys_s; the chunk's bytes joined and its offsets, extract_s) and
+# in the chunks' flushes (flush_s, span "sintax:flush": uploads, kernel-6
+# and kernel-3 launches), the rows whose k-mers kernel 6 extracted on the
+# card (kmer_rows_card: refs on the card, 0 on the CPU), and device
+# milliseconds of the launches of kernels 6 and 3 (CUDA events read after
+# the one fetch; 0.0 on the CPU); the database's records and bases
+# streamed and the records with a taxonomy entry (db_records, db_bases,
+# db_kept); and the CLI's load of the database (db_load_s, span
+# "sintax:db_load")
 SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "parse_s": 0.0,
-               "extract_s": 0.0, "flush_s": 0.0, "kmer_rows_card": 0, "kernel_ms": 0.0}
+               "read_s": 0.0, "keys_s": 0.0, "extract_s": 0.0, "flush_s": 0.0,
+               "kmer_rows_card": 0, "kernel_ms": 0.0, "db_records": 0, "db_bases": 0,
+               "db_kept": 0, "db_load_s": 0.0}
 
 QUERY_SENTINEL = np.uint32(0xFFFFFFFE)
 _BYTE_CODE = np.zeros(256, dtype=np.uint32)
@@ -177,41 +183,61 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
 def _scores_on(subs, db, n_pairs, dev, stats):
     index = index_on(*query_index(subs, QUERY_SENTINEL), n_pairs, dev)
     acc = torch.zeros(n_pairs, dtype=torch.int32, device=dev)
-    # every kept reference's taxonomy entry, by its record index, which is
-    # its ordinal in the keys: the same on every rank, and in stream order,
-    # so the earliest reference still wins a tie
-    entries: dict[int, tax.TaxonomyEntry] = {}
+    # every record's taxonomy key by its record index, which is its ordinal
+    # in the keys (None where the record has no entry): the same on every
+    # rank, and in stream order, so the earliest reference still wins a
+    # tie; entries are looked up only for the references that win a pair
+    keys: list[str | None] = []
     pend_s: list[bytes] = []
     pend_r: list[int] = []
     chunk: list = []  # ref_rows of pend_s, once extract has joined them
     n_ranks, my_rank = distributed.world(), distributed.rank()
+    extract_key, taxonomy = db.extract_key, db.taxonomy
+    stream = read_fastx_stream(str(db.fasta_path), CHUNK_ROWS)
+    recs: list = []  # the stream's chunk in hand
+    at = 0  # the index in recs of the next record to look at
 
-    def extract(records) -> None:
+    def extract() -> None:
         """The next chunk's references into pend_s / pend_r, up to
         CHUNK_ROWS of them or to the end of the stream, then joined into
         chunk."""
+        nonlocal recs, at
+        parse0 = stats["read_s"] + stats["keys_s"]
         lap = Laps(stats)
-        for n, rec in records:
-            if n > ORDINAL_MAX:
-                raise ValueError(f"sintax: the database holds more than {ORDINAL_MAX + 1} "
-                                 "records, the most a score key's ordinal field can tell apart")
-            key = db.extract_key(rec.id)
-            if key is None:
-                continue
-            entry = db.taxonomy.get(key)
-            if entry is None:
-                continue
-            entries[n] = entry
-            # the rank's references with a k-mer: every n_ranks-th record (all
-            # of them without a process group)
-            if n % n_ranks == my_rank and len(rec.seq) >= SINTAX_K:
-                pend_s.append(rec.seq)
-                pend_r.append(n)
-            if (n + 1) % 10000 == 0:
-                log.info("Processed %d reference sequences...", n + 1)
-            if len(pend_s) == CHUNK_ROWS:
-                break
-        lap("parse_s")
+        while len(pend_s) < CHUNK_ROWS:
+            if at == len(recs):
+                lap("keys_s")
+                with span("sintax:read", stats, "read_s"):
+                    recs, at = next(stream, []), 0
+                lap = Laps(stats)
+                if not recs:
+                    break
+                n0 = len(keys)
+                if n0 + len(recs) - 1 > ORDINAL_MAX:
+                    raise ValueError(f"sintax: the database holds more than {ORDINAL_MAX + 1} "
+                                     "records, the most a score key's ordinal field can tell apart")
+                stats["db_records"] += len(recs)
+                stats["db_bases"] += sum(len(r.seq) for r in recs)
+                if (n0 + len(recs)) // 10000 > n0 // 10000:
+                    log.info("Processed %d reference sequences...", (n0 + len(recs)) // 10000 * 10000)
+            for i in range(at, len(recs)):
+                rec = recs[i]
+                n = len(keys)
+                key = extract_key(rec.id)
+                if key is None or key not in taxonomy:
+                    keys.append(None)
+                    continue
+                keys.append(key)
+                # the rank's references with a k-mer: every n_ranks-th record
+                # (all of them without a process group)
+                if n % n_ranks == my_rank and len(rec.seq) >= SINTAX_K:
+                    pend_s.append(rec.seq)
+                    pend_r.append(n)
+                    if len(pend_s) == CHUNK_ROWS:
+                        break
+            at = i + 1
+        lap("keys_s")
+        stats["parse_s"] += stats["read_s"] + stats["keys_s"] - parse0
         if pend_s:
             chunk[:] = ref_rows(pend_s)
             lap("extract_s")
@@ -227,23 +253,27 @@ def _scores_on(subs, db, n_pairs, dev, stats):
         pend_s.clear()
         pend_r.clear()
 
-    records = enumerate(read_fastx(str(db.fasta_path)))
-    while True:
-        with span("sintax:extract", stats, "kmers_s"):
-            extract(records)
-        if not pend_s:
-            break
-        with span("sintax:flush", stats, "flush_s"):
-            flush()
+    try:
+        while True:
+            with span("sintax:extract", stats, "kmers_s"):
+                extract()
+            if not pend_s:
+                break
+            with span("sintax:flush", stats, "flush_s"):
+                flush()
+    finally:
+        stream.close()
+    kept = len(keys) - keys.count(None)
+    stats["db_kept"] += kept
 
     # the keys are unsigned 32-bit patterns (a score of 32 sets bit 31), so
     # the ranks' maximum is taken on them widened to int64
     best_key = distributed.all_reduce_(keys_int64(acc), "max").cpu().numpy()  # the one fetch
     best_scores = (best_key >> 26).astype(np.int32)
     ordinal = ORDINAL_MAX - (best_key & ORDINAL_MAX)
-    best_tax = [entries[int(o)] if k > 0 else None for k, o in zip(best_key, ordinal)]
-    log.info("SINTAX scores on %s: %d of %d kept refs on this rank", dev, stats["refs"],
-             len(entries))
+    best_tax = [taxonomy[keys[o]] if k > 0 else None for k, o in zip(best_key, ordinal.tolist())]
+    log.info("SINTAX scores on %s: %d refs on this rank, %d of %d records kept", dev, stats["refs"],
+             kept, len(keys))
     return best_scores, best_tax
 
 

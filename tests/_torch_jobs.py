@@ -12,6 +12,7 @@ panels as the flat-row tensors the port's functions take; and
 steady_reference_native, which every port test that compares against a
 reference host path runs first (through clear_caches or directly)."""
 import fcntl
+import gzip
 import os
 import subprocess
 import sys
@@ -449,6 +450,48 @@ def write_emu_db(db_dir, refs) -> None:
         for tid, sp, g, fam, _seq in refs:
             f.write(f"{tid}\t{sp}\t{g}\t{fam}\tOrd\tCls\tPhy\tClade\tBacteria\t\t\t\n")
     (db_dir / ".savont_db").write_text("emu-1")
+
+
+SILVA_FASTA = "SILVA_138.2_SSURef_NR99_tax_silva_trunc.fasta.gz"
+SILVA_TAXMAP = "taxmap_slv_ssu_ref_nr_138.2.txt"
+SILVA_ORPHAN = "ZZ999999"  # the accession of write_silva_db's record that TAXMAP lacks
+
+
+def write_silva_db(db_dir, refs, seed: int = 0) -> None:
+    """A SILVA-format database (silva-138.2: FASTA.gz, TAXMAP and the
+    .savont_db marker) from refs (tax_id, species, genus, family, seq), in
+    the shapes of SILVA SSU Ref NR99: RNA letters in lines of 60 under gzip,
+    headers `ACCESSION.start.stop path;organism`, TAXMAP lines of accession,
+    start, stop, the path ending in ';', organism and taxid.  Besides: refs
+    1 and 2 share an accession (two operons of one genome, both named by
+    the later TAXMAP line), every fifth ref from the fifth holds an IUPAC
+    byte, and a last record, of 500 random bases, has an accession
+    (SILVA_ORPHAN) that TAXMAP lacks."""
+    rng = np.random.default_rng(seed)
+    db_dir = Path(db_dir)
+    db_dir.mkdir(parents=True, exist_ok=True)
+    accs = [f"AB{100000 + k}" for k in range(len(refs))]
+    if len(accs) > 2:
+        accs[2] = accs[1]
+    fasta, taxmap = [], ["primaryAccession\tstart\tstop\tpath\torganism_name\ttaxid\n"]
+    rows = [(a, *r) for a, r in zip(accs, refs)]
+    rows.append((SILVA_ORPHAN, "0", "Orphan sp.", "Orphan", "OrphanFam", rand_seq(rng, 500)))
+    for k, (acc, tid, sp, genus, fam, seq) in enumerate(rows):
+        seq = bytearray(seq)
+        if k % 5 == 4 and seq:
+            seq[int(rng.integers(len(seq)))] = int(rng.choice(list(b"NRYKMSWBDHV")))
+        rna = bytes(seq).replace(b"T", b"U")
+        path = f"Bacteria;Phy;Cls;Ord;{fam};{genus}"
+        start = 1 + 7000 * k
+        stop = start + len(rna) - 1
+        fasta.append(f">{acc}.{start}.{stop} {path};{sp}\n".encode()
+                     + b"".join(rna[i:i + 60] + b"\n" for i in range(0, len(rna), 60)))
+        if acc != SILVA_ORPHAN:
+            taxmap.append(f"{acc}\t{start}\t{stop}\t{path};\t{sp}\t{tid}\n")
+    with gzip.open(db_dir / SILVA_FASTA, "wb", compresslevel=1) as f:
+        f.write(b"".join(fasta))
+    (db_dir / SILVA_TAXMAP).write_text("".join(taxmap))
+    (db_dir / ".savont_db").write_text("silva-138.2")
 
 
 def graded_refs(seed: int, n_bases: int = 10, per_base: int = 10, length: int = 1500):

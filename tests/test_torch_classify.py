@@ -31,6 +31,7 @@ from savont_tpu_torch.pipeline import classify as port_classify
 from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
 from _torch_jobs import (
     foreign_ends, graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db,
+    write_silva_db,
 )
 
 OUTPUTS = ("species_abundance.tsv", "genus_abundance.tsv", "asv_mappings.tsv")
@@ -75,13 +76,15 @@ def _run_both(tmp_path, db_dir, in_dir, **kw):
     return read_outputs(tmp_path / "jax", OUTPUTS), read_outputs(tmp_path / "port", OUTPUTS)
 
 
-@pytest.mark.parametrize("case", ["single", "pooled", "detailed"])
+@pytest.mark.parametrize("case", ["single", "pooled", "detailed", "silva"])
 def test_classify_equals_jax_host(tmp_path, fresh_band, case):
     """The exact, degraded, foreign-ended (both strands), cut and unrelated
-    ASVs: one sample, two pooled samples (the wide writers), and
-    --detailed-unclassified."""
+    ASVs: one sample, two pooled samples (the wide writers),
+    --detailed-unclassified, and one sample against the same references in
+    the silva-138.2 format (write_silva_db: RNA in 60-base lines under gzip,
+    an accession of two records, IUPAC bytes, a record TAXMAP lacks)."""
     refs = graded_refs(seed=71)
-    write_emu_db(tmp_path / "db", refs)
+    (write_silva_db if case == "silva" else write_emu_db)(tmp_path / "db", refs)
     seqs = _asvs(refs, seed=72)
     samples = depths = None
     if case == "pooled":
@@ -92,7 +95,7 @@ def test_classify_equals_jax_host(tmp_path, fresh_band, case):
     want, got = _run_both(tmp_path, tmp_path / "db", in_dir, **kw)
     assert got == want
     rows = want["asv_mappings.tsv"].decode().splitlines()[1:]
-    if case == "single":
+    if case in ("single", "silva"):
         by_asv = {r.split("\t")[0]: r.split("\t") for r in rows}
         assert by_asv["final_consensus_0_depth_10"][2] == "100.00"
         assert by_asv["final_consensus_1_depth_20"][5] == "UNCLASSIFIED"

@@ -8,10 +8,13 @@ lower entry (the query index, ragged rows), is
 held to the JAX package's mesh step sharded_sintax_scores on a one-device
 CPU mesh, over chip_smoke's edge cases (the inputs the card run holds the
 kernel to), and the port's device scores to the host stream _host_scores; the port's
-`sintax --device cpu` to the JAX package's host sintax, byte for byte.
-Tolerance 0: the keys are integers and the outputs bytes."""
+`sintax --device cpu` to the JAX package's host sintax and to the plain
+SINTAX (benchmark/plain_sintax.py), byte for byte, on emu-1 and silva-138.2
+databases.  Tolerance 0: the keys are integers and the outputs bytes."""
 import dataclasses
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,16 +27,21 @@ from savont_tpu.db import registry as jax_registry
 from savont_tpu.parallel.mesh import make_mesh, sharded_sintax_scores
 from savont_tpu.pipeline import sintax as jax_sintax
 from savont_tpu_torch.config import SintaxArgs
-from savont_tpu_torch.db import registry
+from savont_tpu_torch.db import registry, taxonomy
 from savont_tpu_torch.io.fastx import read_fastx
 from savont_tpu_torch.ops import sintax_torch
 from savont_tpu_torch.ops.encode import revcomp_bytes
 from savont_tpu_torch.pipeline import sintax as port_sintax
 
 from _torch_jobs import reference_native  # noqa: F401  (autouse: savont_tpu's native libraries whole)
-from _torch_jobs import graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db
+from benchmark import plain_sintax
+from _torch_jobs import (
+    SILVA_ORPHAN, graded_refs, rand_seq, read_outputs, substitute, write_asv_dir, write_emu_db,
+    write_silva_db,
+)
 
 OUTPUTS = ("genus_abundance.tsv", "asv_mappings.tsv")
+ROOT = Path(__file__).resolve().parent.parent
 N_EDGE = len(chip_smoke.sintax_edge_cases())
 N_REF = len(chip_smoke.sintax_ref_cases())
 
@@ -219,12 +227,14 @@ def test_kernel3_wrapper_checks():
         sintax_torch.sintax_scores_rows(index, kmers, row_off, ridx, torch.zeros(5, dtype=torch.int32))
 
 
-def _edge_db(tmp_path, seed: int):
+def _edge_db(tmp_path, seed: int, fmt: str = "emu-1"):
     """Graded references plus the edges of the host stream: two references
     of equal sequence under different taxa (ties: the earlier is kept), a
     reference of 9 bases (no k-mer), one whose taxon is missing, and ASVs of
     10 bases (no k-mer: sentinel rows) and 14 bases (3 k-mers, so slots
-    repeat and a reference that holds them scores 32)."""
+    repeat and a reference that holds them scores 32).  In fmt emu-1 or
+    silva-138.2 (write_silva_db's shapes: RNA, 60-base lines, gzip, an
+    accession of two records, IUPAC bytes); the same ASVs in both."""
     rng = np.random.default_rng(seed)
     refs = graded_refs(seed, n_bases=3)
     short = rand_seq(rng, 14)
@@ -232,9 +242,13 @@ def _edge_db(tmp_path, seed: int):
     refs += [("2002", "Twin B", "OtherGenus", "Fam9", refs[12][4]),
              ("2003", "Tiny", "TinyGenus", "Fam9", rand_seq(rng, 9)),
              ("2004", "Holder", "HolderGenus", "Fam9", rand_seq(rng, 300) + short)]
-    write_emu_db(tmp_path / "db", refs)
-    with open(tmp_path / "db" / "species_taxid.fasta", "a") as f:
-        f.write(f">9999:emu_db:0\n{rand_seq(rng, 500).decode()}\n")
+    orphan = rand_seq(rng, 500)
+    if fmt == "silva-138.2":
+        write_silva_db(tmp_path / "db", refs, seed)
+    else:
+        write_emu_db(tmp_path / "db", refs)
+        with open(tmp_path / "db" / "species_taxid.fasta", "a") as f:
+            f.write(f">9999:emu_db:0\n{orphan.decode()}\n")
     asvs = [refs[0][4], bytes(substitute(rng, refs[12][4], 0.05)),
             revcomp_bytes(bytes(substitute(rng, refs[25][4], 0.08))), rand_seq(rng, 10), short,
             rand_seq(rng, 1400)]
@@ -270,18 +284,74 @@ def test_device_scores_equal_host_stream(tmp_path, monkeypatch):
     assert dev_scores.max() == 32 and (dev_scores[60:80] == 0).all()
 
 
-@pytest.mark.parametrize("detailed", [False, True])
-def test_sintax_equals_jax_host(tmp_path, detailed):
-    db_dir, asvs = _edge_db(tmp_path, 82)
+# (database format, --detailed-unclassified, the yardstick): the JAX
+# package's host sintax, or the plain SINTAX of benchmark/plain_sintax.py
+SINTAX_CASES = [pytest.param("emu-1", False, "jax", id="False"),
+                pytest.param("emu-1", True, "jax", id="True")] + [
+    pytest.param(fmt, detailed, yardstick, id=f"{fmt}-{detailed}-{yardstick}")
+    for fmt, yardstick in (("silva-138.2", "jax"), ("emu-1", "plain"), ("silva-138.2", "plain"))
+    for detailed in (False, True)]
+
+
+@pytest.mark.parametrize("fmt, detailed, yardstick", SINTAX_CASES)
+def test_sintax_equals_jax_host(tmp_path, fmt, detailed, yardstick):
+    """The port's `sintax --device cpu` against the JAX package's host
+    sintax, or the plain SINTAX, byte for byte, on the edge database in
+    either format."""
+    db_dir, asvs = _edge_db(tmp_path, 82, fmt)
     in_dir = write_asv_dir(tmp_path / "run", asvs)
     kw = {"detailed_unclassified": detailed, "n_iter": 50}
-    jax_sintax.sintax(JaxSintaxArgs(input_dir=str(in_dir), output_dir=str(tmp_path / "jax"),
-                                    db=str(db_dir), **kw), jax_registry.load_database(db_dir))
+    if yardstick == "jax":
+        jax_sintax.sintax(JaxSintaxArgs(input_dir=str(in_dir), output_dir=str(tmp_path / "want"),
+                                        db=str(db_dir), **kw), jax_registry.load_database(db_dir))
+    else:
+        plain_sintax.sintax(in_dir, db_dir, tmp_path / "want", n_iter=50, detailed=detailed)
     port_sintax.sintax(SintaxArgs(input_dir=str(in_dir), output_dir=str(tmp_path / "port"),
                                   db=str(db_dir), device="cpu", **kw), registry.load_database(db_dir))
-    want = read_outputs(tmp_path / "jax", OUTPUTS)
+    want = read_outputs(tmp_path / "want", OUTPUTS)
     assert read_outputs(tmp_path / "port", OUTPUTS) == want
     assert "Genus0" in want["asv_mappings.tsv"].decode()
+
+
+def test_plain_sintax_imports_neither_package():
+    """The plain SINTAX runs where nothing imports JAX: loading it loads no
+    module of savont_tpu or savont_tpu_torch, nor jax."""
+    code = ("import sys, benchmark.plain_sintax; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('savont_tpu', 'savont_tpu_torch', 'jax', 'jaxlib', 'torch')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_silva_entries_built_for_winners_only(tmp_path, monkeypatch):
+    """On the SILVA edge database, in chunks of 4 references: the device
+    scores equal the host stream's (the record TAXMAP lacks is skipped and
+    keeps its record index, so the ordinals, and the earliest of two equal
+    references, are as before); every kept record is counted, and TAXMAP
+    entries are built only for the references that win a pair."""
+    db_dir, asvs = _edge_db(tmp_path, 87, "silva-138.2")
+    db = registry.load_database(db_dir)
+    assert isinstance(db.taxonomy, taxonomy.SilvaTaxmap) and not db.taxonomy._entries
+    assert SILVA_ORPHAN not in db.taxonomy and len(db.taxonomy) == 33  # 34 refs, two share an accession
+    subs = port_sintax.query_matrix(asvs, 20)
+    monkeypatch.setattr(port_sintax, "CHUNK_ROWS", 4)
+    for k in ("refs", "db_records", "db_kept", "db_bases"):
+        monkeypatch.setitem(port_sintax.SCORE_STATS, k, 0)
+    dev_scores, dev_tax = port_sintax._device_scores(subs, db, len(subs), "cpu")
+    built = set(db.taxonomy._entries)
+    winners = {e.tax_id for e in dev_tax if e is not None}
+    assert {db.taxonomy[k].tax_id for k in built} == winners and len(built) < len(db.taxonomy)
+    st = port_sintax.SCORE_STATS
+    records = list(read_fastx(str(db.fasta_path)))
+    assert st["db_records"] == len(records) == 35 and st["db_kept"] == 34
+    assert st["db_bases"] == sum(len(r.seq) for r in records)
+    assert st["refs"] == _kept_refs(db) == 33  # the 9-base record has no k-mer
+    host_scores, host_tax = port_sintax._host_scores(subs, port_sintax.QUERY_SENTINEL, db, len(subs))
+    assert np.array_equal(dev_scores, host_scores)
+    assert [None if e is None else dataclasses.astuple(e) for e in dev_tax] == \
+        [None if e is None else dataclasses.astuple(e) for e in host_tax]
+    assert dev_scores.max() == 32 and "2004" in winners  # the holder of the short ASV
 
 
 def test_extract_kmers_and_xorshift_equal_jax():

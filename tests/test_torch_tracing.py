@@ -25,7 +25,7 @@ from savont_tpu_torch.pipeline import asv as port_asv
 from savont_tpu_torch.pipeline import sintax as port_sintax
 
 from _torch_jobs import (
-    clear_caches, graded_refs, rand_seq, substitute, write_asv_dir, write_emu_db,
+    clear_caches, graded_refs, rand_seq, substitute, write_asv_dir, write_emu_db, write_silva_db,
 )
 
 PARTS = {
@@ -204,7 +204,8 @@ def _record(counter: str, values: dict, work: int, calls: int = 2):
 
 
 ASV_METRICS = {f"stage{k.replace('.', '_')}_ms_per_kread": k for k in KEYS if k not in UNREAD}
-SINTAX_METRICS = {f"sintax_{k}": k for k in ("parse_s", "extract_s", "flush_s")}
+SINTAX_METRICS = {f"sintax_{k}": k for k in ("parse_s", "extract_s", "flush_s", "read_s", "keys_s",
+                                               "db_load_s")}
 
 
 @pytest.mark.parametrize("name", sorted(ASV_METRICS))
@@ -249,6 +250,37 @@ def test_every_new_metric_is_declared():
         assert declared[name]["workloads"] == ["operon.asv"]
         assert declared[name]["moves"] == "asv_reads_per_s"
     for name in (*SINTAX_METRICS, "k6_device_ms.sintax"):
-        assert declared[name]["workloads"] == ["ont16s.sintax"]
+        assert declared[name]["workloads"] == ["ont16s.sintax", "silva.sintax"]
         assert declared[name]["moves"] == "sintax_s"
     assert declared["k6_device_ms.sintax"]["layer"] == "sintax host k-mer extraction"
+    assert declared["sintax_db_load_s"]["layer"] == "sintax database load"
+
+
+def test_sintax_db_stream_on_silva(tmp_path, monkeypatch):
+    """A `sintax --device cpu` call through the CLI on a small SILVA
+    directory, in chunks of 8 references and under the profiler: the
+    database's load, the stream's reads and its key lookups are timed (the
+    reads and lookups make up parse_s), its records, kept records and bases
+    counted, the spans sintax:db_load, sintax:read, sintax:extract and
+    sintax:flush recorded, and the benchmark's three readers of the new keys
+    give them a call."""
+    refs = graded_refs(93, n_bases=3)
+    write_silva_db(tmp_path / "db", refs)
+    in_dir = write_asv_dir(tmp_path / "run", [refs[0][4], refs[14][4]])
+    monkeypatch.setattr(port_sintax, "CHUNK_ROWS", 8)
+    for k, v in port_sintax.SCORE_STATS.items():
+        monkeypatch.setitem(port_sintax.SCORE_STATS, k, type(v)(0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert cli.main(["--log-level", "warn", "sintax", "-i", str(in_dir), "-o", str(tmp_path / "out"),
+                         "-d", str(tmp_path / "db"), "--device", "cpu", "-t", "2"]) == 0
+    names = {e.key for e in prof.key_averages()}
+    assert {"sintax:db_load", "sintax:read", "sintax:extract", "sintax:flush"} <= names
+    st = dict(port_sintax.SCORE_STATS)
+    assert st["db_load_s"] > 0 and st["read_s"] > 0 and st["keys_s"] > 0
+    assert st["parse_s"] == pytest.approx(st["read_s"] + st["keys_s"])
+    assert st["db_records"] == len(refs) + 1 and st["db_kept"] == len(refs)  # the orphan is skipped
+    assert st["db_bases"] == sum(len(r[4]) for r in refs) + 500
+    record = bench_run.Record(calls=[{"ok": True, "work": 1, "counters": {"sintax_stats": st}}],
+                              window_s=1.0)
+    for key in ("read_s", "keys_s", "db_load_s"):
+        assert spec.load_module("metrics", f"sintax_{key}").read(record) == pytest.approx(st[key])
