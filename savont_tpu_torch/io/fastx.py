@@ -1,8 +1,9 @@
 """FASTQ/FASTA ingestion (the reference's needletail role, seq_parse.rs).
 
 Pure-Python host parser with gzip support.  A C++ extension
-(native/fastx.cpp) does the work when it builds: it inflates on a thread of
-its own and splits lines in large blocks, and the records reach Python in
+(native/fastx.cpp) does the work when it builds: it inflates on threads of
+its own (one gzip member over several cores where the caller gives it
+threads) and splits lines in large blocks, and the records reach Python in
 chunks; this module's parser is the fallback, and the yardstick the native
 one is held to.
 """
@@ -103,11 +104,31 @@ def _read_fastx_native(lib, path: str) -> list[FastxRecord]:
     return _records_from_chunk(lib, h)
 
 
-def read_fastx_stream(path: str, chunk_records: int = 32768):
+# compressed bytes a chunk of the native parallel inflate (kChunk in
+# native/fastx.cpp): a 4 MiB chunk of a FASTA inflates in about 0.1 s on one
+# core, so the first records come soon and the last chunk ends soon after
+# the others, while each chunk's search for its first block, and its first
+# 32 KiB decoded without the window, stay small beside it
+CHUNK_BYTES = 4 << 20
+
+# a native stream's inflate counts: workers of the parallel path (0 where
+# one thread inflates), chunks that started speculatively and were verified,
+# chunks the real decode went through itself (false or missing starts), and
+# 1 where the parallel path handed the file back to gzread
+INFLATE_COUNTS = ("inflate_workers", "inflate_chunks_spec", "inflate_chunks_redo", "inflate_fallback")
+
+
+def read_fastx_stream(path: str, chunk_records: int = 32768, threads: int = 1,
+                      chunk_bytes: int | None = None, counts: dict | None = None):
     """Yield lists of FastxRecords, chunk_records at a time, while the file
     is still being decompressed — lets ingestion pipeline with downstream
-    counting (seq_parse.rs:87-122 channel analog).  Falls back to one-shot
-    parsing (a single yield) without the native lib."""
+    counting (seq_parse.rs:87-122 channel analog).  A gzip file of two
+    chunks of chunk_bytes compressed bytes or more (None: CHUNK_BYTES) is
+    inflated by threads - 1 workers where that is 2 or more (and the host
+    has the cores), else by one thread; the records are the same.  Where
+    `counts` is given, the stream's inflate counts are added to it when it
+    ends (INFLATE_COUNTS).  Falls back to one-shot parsing (a single yield)
+    without the native lib."""
     lib = _native_lib()
     if lib is None or not hasattr(lib, "fastx_open"):
         recs = read_fastx_records(path)
@@ -118,12 +139,14 @@ def read_fastx_stream(path: str, chunk_records: int = 32768):
 
     if not hasattr(lib.fastx_open, "_savont_bound"):
         lib.fastx_open.restype = ctypes.c_void_p
-        lib.fastx_open.argtypes = [ctypes.c_char_p]
+        lib.fastx_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int64]
         lib.fastx_next.restype = ctypes.c_void_p
         lib.fastx_next.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.fastx_inflate_counts.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
         lib.fastx_close.argtypes = [ctypes.c_void_p]
         lib.fastx_open._savont_bound = True
-    sh = lib.fastx_open(path.encode())
+    sh = lib.fastx_open(path.encode(), max(1, int(threads)),
+                        CHUNK_BYTES if chunk_bytes is None else int(chunk_bytes))
     if not sh:
         raise ValueError(f"{path}: not FASTA/FASTQ (native parser)")
     try:
@@ -138,6 +161,11 @@ def read_fastx_stream(path: str, chunk_records: int = 32768):
             first = False
             yield recs
     finally:
+        if counts is not None:
+            got = (ctypes.c_int64 * len(INFLATE_COUNTS))()
+            lib.fastx_inflate_counts(sh, got)
+            for key, v in zip(INFLATE_COUNTS, got):
+                counts[key] = counts.get(key, 0) + int(v)
         lib.fastx_close(sh)
 
 

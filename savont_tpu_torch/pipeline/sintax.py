@@ -43,12 +43,17 @@ ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
 # milliseconds of the launches of kernels 6 and 3 (CUDA events read after
 # the one fetch; 0.0 on the CPU); the database's records and bases
 # streamed and the records with a taxonomy entry (db_records, db_bases,
-# db_kept); and the CLI's load of the database (db_load_s, span
-# "sintax:db_load")
+# db_kept); the CLI's load of the database (db_load_s, span
+# "sintax:db_load"); and the database stream's inflate counts
+# (io/fastx.INFLATE_COUNTS: the workers that inflate one gzip file on
+# several cores, 0 where one thread does, its chunks started speculatively
+# and verified, those the real decode went through itself, and hand-backs
+# to gzread)
 SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "parse_s": 0.0,
                "read_s": 0.0, "keys_s": 0.0, "extract_s": 0.0, "flush_s": 0.0,
                "kmer_rows_card": 0, "kernel_ms": 0.0, "db_records": 0, "db_bases": 0,
-               "db_kept": 0, "db_load_s": 0.0}
+               "db_kept": 0, "db_load_s": 0.0, "inflate_workers": 0, "inflate_chunks_spec": 0,
+               "inflate_chunks_redo": 0, "inflate_fallback": 0}
 
 QUERY_SENTINEL = np.uint32(0xFFFFFFFE)
 _BYTE_CODE = np.zeros(256, dtype=np.uint32)
@@ -160,7 +165,7 @@ def _host_scores(subs: np.ndarray, sentinel: np.uint32, db: tax.Database, n_pair
     return best_scores, best_tax
 
 
-def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
+def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device, threads: int = 1):
     """Phase 2 on `device`: the query index is built once and uploaded
     once; the references stream once, in chunks of CHUNK_ROWS, their bytes
     joined on the host; on the device kernel 6 turns a chunk into rows of
@@ -169,18 +174,20 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device):
     reference by record index) into one accumulator; one fetch at the end.
     Under a process group each rank extracts and scores every world-th
     record and the ranks' keys are max'ed with one all_reduce before the
-    fetch (the reference's pmax over its mesh).  Equal to the host stream
-    (_host_scores) and to the JAX package's mesh step, bit for bit."""
+    fetch (the reference's pmax over its mesh).  The database's FASTA is
+    inflated on `threads` - 1 workers where it is gzip of several chunks.
+    Equal to the host stream (_host_scores) and to the JAX package's mesh
+    step, bit for bit."""
     stats = SCORE_STATS
     stats["calls"] += 1
     with span(None, stats, "seconds"):
         with kernel_events() as events:
-            out = _scores_on(subs, db, n_pairs, resolve_device(device), stats)
+            out = _scores_on(subs, db, n_pairs, resolve_device(device), stats, threads)
         stats["kernel_ms"] += events_ms(events)  # after the one fetch: no wait
     return out
 
 
-def _scores_on(subs, db, n_pairs, dev, stats):
+def _scores_on(subs, db, n_pairs, dev, stats, threads):
     index = index_on(*query_index(subs, QUERY_SENTINEL), n_pairs, dev)
     acc = torch.zeros(n_pairs, dtype=torch.int32, device=dev)
     # every record's taxonomy key by its record index, which is its ordinal
@@ -193,7 +200,7 @@ def _scores_on(subs, db, n_pairs, dev, stats):
     chunk: list = []  # ref_rows of pend_s, once extract has joined them
     n_ranks, my_rank = distributed.world(), distributed.rank()
     extract_key, taxonomy = db.extract_key, db.taxonomy
-    stream = read_fastx_stream(str(db.fasta_path), CHUNK_ROWS)
+    stream = read_fastx_stream(str(db.fasta_path), CHUNK_ROWS, threads, counts=stats)
     recs: list = []  # the stream's chunk in hand
     at = 0  # the index in recs of the next record to look at
 
@@ -293,7 +300,7 @@ def sintax(args: SintaxArgs, db: tax.Database) -> None:
 
     log.info("Building SINTAX query map (%d ASVs x %d iterations)", n_asvs, n_iter)
     subs = query_matrix([seq for _, seq in sequences], n_iter)
-    best_scores, best_tax = _device_scores(subs, db, n_pairs, args.device)
+    best_scores, best_tax = _device_scores(subs, db, n_pairs, args.device, args.threads)
     # Phase 3: per-rank votes -> bootstrap fractions
     all_hits: list[dict | None] = []
     for asv_i in range(n_asvs):

@@ -340,7 +340,8 @@ def _streamed_count(
     """Pipelined parse+encode || scan+count over all input files.
 
     A feeder thread streams 32k-record chunks off the gz file
-    (io/fastx.read_fastx_stream), 2-bit-encodes them and applies the
+    (io/fastx.read_fastx_stream, inflated on args.threads - 1 workers where
+    the file is gzip of several chunks), 2-bit-encodes them and applies the
     cutadapt 'rc' header flip (seq_parse.rs:139-147) for the counting copy,
     while this thread runs the native split-kmer scan + radix count on the
     previous chunk (OpenMP, GIL released) — the reference's 3-stage channel
@@ -400,7 +401,7 @@ def _streamed_count(
 
                 recs_all: list = []
                 codes_all, phred_all = [], []
-                for recs in read_fastx_stream(path, chunk):
+                for recs in read_fastx_stream(path, chunk, args.threads):
                     codes, phred = _batch_encode(
                         [r.seq for r in recs], [r.qual for r in recs]
                     )

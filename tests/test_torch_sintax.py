@@ -12,6 +12,7 @@ kernel to), and the port's device scores to the host stream _host_scores; the po
 SINTAX (benchmark/plain_sintax.py), byte for byte, on emu-1 and silva-138.2
 databases.  Tolerance 0: the keys are integers and the outputs bytes."""
 import dataclasses
+import os
 import re
 import subprocess
 import sys
@@ -28,6 +29,7 @@ from savont_tpu.parallel.mesh import make_mesh, sharded_sintax_scores
 from savont_tpu.pipeline import sintax as jax_sintax
 from savont_tpu_torch.config import SintaxArgs
 from savont_tpu_torch.db import registry, taxonomy
+from savont_tpu_torch.io import fastx
 from savont_tpu_torch.io.fastx import read_fastx
 from savont_tpu_torch.ops import sintax_torch
 from savont_tpu_torch.ops.encode import revcomp_bytes
@@ -352,6 +354,37 @@ def test_silva_entries_built_for_winners_only(tmp_path, monkeypatch):
     assert [None if e is None else dataclasses.astuple(e) for e in dev_tax] == \
         [None if e is None else dataclasses.astuple(e) for e in host_tax]
     assert dev_scores.max() == 32 and "2004" in winners  # the holder of the short ASV
+
+
+@pytest.mark.parametrize("fmt", ["silva-138.2", "emu-1"])
+def test_sintax_counts_its_inflate_workers(tmp_path, monkeypatch, fmt):
+    """SCORE_STATS carries the database stream's inflate counts: SILVA's
+    FASTA.gz, cut into chunks of 8 KiB, is inflated on threads - 1 workers
+    from speculative starts that the real decode verified, and scores as on
+    one thread; EMU's FASTA, plain text, is read by one thread whatever the
+    threads, and the counts stay 0."""
+    refs = graded_refs(88, n_bases=10)
+    (write_silva_db if fmt == "silva-138.2" else write_emu_db)(tmp_path / "db", refs)
+    db = registry.load_database(tmp_path / "db")
+    subs = port_sintax.query_matrix([refs[3][4], refs[47][4][:900]], 10)
+    monkeypatch.setattr(fastx, "CHUNK_BYTES", 8192)
+    runs = []
+    for threads in (4, 1):
+        for k in fastx.INFLATE_COUNTS:
+            monkeypatch.setitem(port_sintax.SCORE_STATS, k, 0)
+        scores, taxa = port_sintax._device_scores(subs, db, len(subs), "cpu", threads)
+        counts = {k: port_sintax.SCORE_STATS[k] for k in fastx.INFLATE_COUNTS}
+        runs.append((scores, [None if e is None else dataclasses.astuple(e) for e in taxa], counts))
+    (par_scores, par_tax, par), (one_scores, one_tax, one) = runs
+    assert np.array_equal(par_scores, one_scores) and par_tax == one_tax and par_scores.max() == 32
+    assert set(one.values()) == {0}
+    workers = min(4, os.cpu_count() or 1) - 1
+    if fmt == "emu-1" or workers < 2:
+        assert set(par.values()) == {0}
+    else:
+        assert db.fasta_path.stat().st_size > 4 * 8192
+        assert par["inflate_workers"] == workers and par["inflate_chunks_spec"] > 0
+        assert par["inflate_fallback"] == 0
 
 
 def test_extract_kmers_and_xorshift_equal_jax():
