@@ -53,13 +53,13 @@ failure; nothing catches it, so the exit code is non-zero):
                  pinned below (those of the JAX package's host run on the
                  same reads; tests/test_torch_chip_smoke.py holds them to
                  it), every ASV must be at NM=0 against the templates,
-                 kernels 1 (both modes) and 2 launched by the device routes,
-                 no plain version called, no job handed to the per-job
-                 consumers, the device EM within 1e-4 of the host EM; the
-                 device time of kernels 1 and 2 inside each device route
-                 (kernel_ms) is printed beside the route's seconds.  Then
-                 the earlier path, `--stage4-backend host --stage7-backend
-                 host`, on a 1,500-read sample, held to its own digests.
+                 kernels 1 (both modes) and 2 launched by the device routes
+                 (check_asv_routes), no plain version called, no job handed
+                 to the per-job consumers.  Then a 1,500-read sample with
+                 the flat planner made to decline it, so that every call of
+                 both routes falls to the per-job consumers (kernels 1 and
+                 2 job by job, stage 4's scatter on the host), held to its
+                 own digests, to each kernel launched and no plain version.
   6. classification - in phase 5's work directory, through
                  `savont_tpu_torch.cli.main` on the card: the port's
                  build_emu_slice of phase 5's templates (10,000 references),
@@ -133,9 +133,9 @@ failure; nothing catches it, so the exit code is non-zero):
                  kernels 1 (both modes) and 2 launched (and kernel 4 by the
                  mesh run), no plain version, no fallback, stage 7 carrying
                  at least 5,000 jobs, both device routes every job their
-                 planner made, the device EM within 1e-4 of the host EM;
-                 each run's wall, stage seconds, route seconds beside
-                 kernel_ms, launch cut, overflow pairs and kernel 2's pairs
+                 planner made in launches their wrappers counted; each
+                 run's wall, stage seconds, route seconds, launch cut,
+                 overflow pairs and kernel 2's pairs
                  a block printed, with nvidia-smi's name and power limit;
   scale        - one ONT PromethION 16S barcode's scale: a seed-pinned
                  sample of 100,000 reads (scale_sample: phase 5's error
@@ -146,8 +146,8 @@ failure; nothing catches it, so the exit code is non-zero):
                  at NM=0, kernels 1 (both modes) and 2 launched (and 4 by
                  the mesh run), no plain version, no fallback, stages 4 and
                  7 each in two launches or more carrying every planned job,
-                 the device EM within 1e-4 of the host EM; each run's wall,
-                 stage seconds, route seconds beside kernel_ms, launch cut
+                 in launches their wrappers counted; each run's wall,
+                 stage seconds, route seconds, launch cut
                  and torch.cuda.max_memory_allocated printed (and stage 1's
                  count under mesh).  Then build_emu_slice of the 48
                  templates at 100,000 references, `classify` of the 48 ASVs
@@ -169,8 +169,7 @@ failure; nothing catches it, so the exit code is non-zero):
                  (stage 4) counted.  Two ranks sharing the card over gloo:
                  `asv` on phase 5's reads (DIGESTS on each rank, the ranks'
                  stage-4 and stage-7 jobs adding up to phase 5's, each more
-                 than none, no fallback, the device EM of the two within
-                 1e-6), `sintax` of phase 5's ASVs against phase 6's
+                 than none, no fallback), `sintax` of phase 5's ASVs against phase 6's
                  database (DIGESTS_CLASSIFICATION's files; the ranks'
                  references adding up to phase 6's, neither above 60%),
                  split_kmer_count over the ranks at phase 7's kernel cell
@@ -201,8 +200,7 @@ BAND = 48
 OPERON_BAND = 128
 N_PAIRS_MIN = 2048
 N_READS = 5000
-N_READS_SMALL = 1500   # the host-routes run
-EM_TOLERANCE = 1e-4    # device float32 EM against the host float64 EM, absolute
+N_READS_SMALL = 1500   # the per-job consumers' run
 TEMPLATE_LEN = 1450
 SEED = 2026
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -233,7 +231,7 @@ DIGESTS = {
     "feature-table.tsv": "5508ec928bf4106aaece7efe0c686abb5f30c8a15b0f37c7d911f85ae37a5463",
     "temp/read_to_asv_mappings.tsv": "edaf681418d63f60bc88d8e4ad7bd85924beff57901ca6380f76d987525944cd",
 }
-# the same for the host-routes run on write_reads' N_READS_SMALL sample
+# the same on write_reads' N_READS_SMALL sample
 DIGESTS_SMALL = {
     "final_asvs.fasta": "87c981361e01054f4f74012e3e1c1808167b483b298564ae9379372e21d7441b",
     "feature-table.tsv": "1c1b7107daedd81a76a11857b552dd88f050805814caa756762c6e5b96114499",
@@ -259,7 +257,7 @@ SINTAX_REF_OPTIN = 12_288  # k-mers past which kernel 6's shared memory needs th
 # (band 128), on the classification cell's inputs: its build_emu_slice of
 # phase 5's templates, classify of the phase-5 ASVs (written into their
 # directory) and of write_hard_asvs' ASVs, sintax of the phase-5 ASVs and
-# export of the phase-5 and host-routes directories (relabelled); paths relative to the
+# export of the phase-5 and small-sample directories (relabelled); paths relative to the
 # work directory (tests/test_torch_chip_smoke.py re-derives them)
 DIGESTS_CLASSIFICATION = {
     "db/emu/species_taxid.fasta": "1df58e52aef73664c0cbc02741923fd7ce6dd8bc1374c22f9db7af9924084988",
@@ -370,7 +368,6 @@ WALK_MAX_SHARED = 227 * 1024
 RANKS = 2                  # ranks of the gloo runs
 RANKS_TIMEOUT_S = 300      # a run's ranks are killed past this
 RANKS_CLASSIFY_REFS = 1000  # sharded_classify_nm: the phase-5 ASVs against the first 1,000 references
-EM_RANKS_TOLERANCE = 1e-6  # the device EM of two ranks (index_add_ order on the card)
 # the one-host ranks' collectives go over loopback
 RANK_ENV = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo"}
 
@@ -1076,7 +1073,7 @@ def sintax_route_check(db_dir: Path, asv_fasta: Path) -> dict:
     log(f"sintax route on the card == host stream ({len(subs)} pairs, {sx['refs']} references, "
         f"kmer_rows_card {sx['kmer_rows_card']}, {launches} launches of kernels 6 and 3): route "
         f"{dev_s:.3f} s (extract {sx['extract_s']:.3f} s, parse {sx['parse_s']:.3f} s, flush "
-        f"{sx['flush_s']:.3f} s, kernels 6 + 3 {sx['kernel_ms']:.3f} device ms), host stream "
+        f"{sx['flush_s']:.3f} s), host stream "
         f"{host_s:.3f} s")
     return {"stats": sx, "launches": launches, "route_s": dev_s, "host_s": host_s}
 
@@ -1414,7 +1411,7 @@ def output_digests(out_dir: Path) -> dict[str, str]:
 
 
 def small_sample_rng():
-    """The generator in the state the host-routes sample starts from: after
+    """The generator in the state the small sample starts from: after
     the main sample's draws."""
     rng = main_path_rng()
     with tempfile.TemporaryDirectory() as d:
@@ -1422,29 +1419,55 @@ def small_sample_rng():
     return rng
 
 
+ROUTES = {"stage4": "mesh_stage4_pileups", "stage7": "stage7_nm_values"}
+
+
 def cli_asv(out_dir: Path, fq: Path, *args: str) -> dict:
     """One `asv` through the CLI on the card into out_dir, with every count
     set to 0 just before it; what it counted, read just after: launches and
-    plain-version calls of kernels 1, 2 and 4, the device routes' stats, the
+    plain-version calls of kernels 1, 2 and 4, the launches of kernels 1 and
+    2 made inside each device route of parallel/mesh (ROUTES; the stage-4
+    votes and stages 5-6 launch beside them), the device routes' stats, the
     per-job routes' seconds (the stages' "dp" parts) and the stage seconds."""
     from savont_tpu_torch import cli
     from savont_tpu_torch.ops import align_torch
     from savont_tpu_torch.ops import kmers_torch as kt
+    from savont_tpu_torch.parallel import mesh as port_mesh
     from savont_tpu_torch.parallel.mesh import ROUTE_STATS, reset_route_stats
     from savont_tpu_torch.pipeline import stage1_kmers as s1
     from savont_tpu_torch.pipeline.asv import STAGE_SECONDS
+
+    inside = {stage: dict.fromkeys(align_torch.LAUNCHES, 0) for stage in ROUTES}
+
+    def counted(stage, route):
+        def run(*a, **k):
+            before = dict(align_torch.LAUNCHES)
+            try:
+                return route(*a, **k)
+            finally:
+                for key, n in align_torch.LAUNCHES.items():
+                    inside[stage][key] += n - before[key]
+        return run
 
     align_torch.reset_counters()
     kt.reset_counters()
     reset_route_stats()
     s1.reset_count_stats()
-    t0 = time.perf_counter()
-    rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out_dir),
-                   "--device", "cuda", "-t", "4", *args])
-    wall = time.perf_counter() - t0
+    routes = {stage: getattr(port_mesh, name) for stage, name in ROUTES.items()}
+    for stage, name in ROUTES.items():
+        setattr(port_mesh, name, counted(stage, routes[stage]))
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out_dir),
+                       "--device", "cuda", "-t", "4", *args])
+        wall = time.perf_counter() - t0
+    finally:
+        for stage, name in ROUTES.items():
+            setattr(port_mesh, name, routes[stage])
     if rc != 0:
         raise AssertionError(f"savont_tpu_torch asv {' '.join(args)} exited {rc}")
     return {"wall_s": wall, "launches": {**align_torch.LAUNCHES, **kt.LAUNCHES},
+            "route_launches": inside,
             "plain_calls": {**align_torch.REFERENCE_CALLS, **kt.REFERENCE_CALLS},
             "routes": {k: dict(v) for k, v in ROUTE_STATS.items()},
             "per_job_route_s": {k: v for k, v in STAGE_SECONDS.items() if k.endswith(".dp")},
@@ -1491,35 +1514,42 @@ def main_path(work: Path, rng) -> dict:
     # read to its candidate ASVs
     if s4["calls"] < 1 or s7["calls"] < 1 or s4["jobs"] < N_READS // 2 or s7["jobs"] < N_READS // 2:
         raise AssertionError(f"the device routes did not carry the sample: {mesh['routes']}")
-    if s4["fallbacks"] or s7["fallbacks"]:
-        raise AssertionError(f"the flat planner declined work on the sample: {mesh['routes']}")
-    if not (s4["kernel_ms"] > 0 and s7["kernel_ms"] > 0):
-        raise AssertionError(f"no kernel time was read inside the device routes: {mesh['routes']}")
-    if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
-        raise AssertionError(f"device EM differs from the host EM by {s7['em_max_abs_diff']}")
+    check_asv_routes("mesh", mesh, N_READS)
     log(f"main path (device routes): {N_READS} reads, {n_asvs} ASVs all NM=0, outputs equal the "
         f"host run's pinned digests; savont_tpu_torch asv --device cuda {mesh['wall_s']:.2f} s warm "
         f"(first run {warm['wall_s']:.2f} s; wall, kernel build excluded); launches "
         f"{mesh['launches']}; plain calls {mesh['plain_calls']}")
-    log(f"  stage seconds {mesh['stage_s']}; device routes, with the device milliseconds of "
-        f"kernels 1 and 2 inside each (kernel_ms: {s4['kernel_ms']:.3f} of "
-        f"{1e3 * s4['seconds']:.1f} ms in stage 4, {s7['kernel_ms']:.3f} of "
-        f"{1e3 * s7['seconds']:.1f} ms in stage 7), {json.dumps(mesh['routes'])}; "
-        f"per-job routes {mesh['per_job_route_s']}; {s4['overflow']} pairs overflowed kernel 2 "
-        f"and were counted on the host; EM {s7['em_iters']} iterations, max |host - device| "
-        f"{s7['em_max_abs_diff']:.3e} (tolerance {EM_TOLERANCE})")
+    log(f"  stage seconds {mesh['stage_s']}; device routes ({1e3 * s4['seconds']:.1f} ms in "
+        f"stage 4, {1e3 * s7['seconds']:.1f} ms in stage 7) {json.dumps(mesh['routes'])}; "
+        f"per-job routes {mesh['per_job_route_s']}; {s4['overflow']} pairs overflowed "
+        f"kernel 2 and were counted on the host")
 
-    # the earlier path: the per-job routes, on a smaller sample
+    # a smaller sample through the per-job consumers, the routes' fallback
+    # for inputs the flat planner declines (made to decline every input
+    # here), held to its own digests (its directory's name is pinned in
+    # DIGESTS_CLASSIFICATION through export)
+    from savont_tpu_torch.parallel import mesh as port_mesh
+
     fq_s, tpl_s = work / "small" / "reads.fq.gz", work / "small" / "templates.fa"
     fq_s.parent.mkdir()
     write_reads(fq_s, tpl_s, rng, N_READS_SMALL)
-    host = run(fq_s, "host", "--stage4-backend", "host", "--stage7-backend", "host")
-    n_small = held(work / "host", tpl_s, DIGESTS_SMALL, host)
-    if any(v["calls"] for v in host["routes"].values()):
-        raise AssertionError(f"the host-routes run entered the device routes: {host['routes']}")
-    log(f"earlier path (per-job routes): {N_READS_SMALL} reads, {n_small} ASVs all NM=0, outputs "
-        f"equal their pinned digests; {host['wall_s']:.2f} s; launches {host['launches']}")
-    log(f"  stage seconds {host['stage_s']}; per-job routes {host['per_job_route_s']}")
+    planner = port_mesh._plan_soa_indexed
+    port_mesh._plan_soa_indexed = lambda *a, **k: None
+    try:
+        small = run(fq_s, "host")
+    finally:
+        port_mesh._plan_soa_indexed = planner
+    n_small = held(work / "host", tpl_s, DIGESTS_SMALL, small)
+    inside = small["route_launches"]
+    if not (all(v["fallbacks"] == v["calls"] >= 1 for v in small["routes"].values())
+            and inside["stage4"]["sw_forward_payload"] > 0 and inside["stage4"]["sw_walk"] > 0
+            and inside["stage7"]["sw_forward_nm"] > 0):
+        raise AssertionError(f"the per-job consumers did not carry every call: {small['routes']}, "
+                             f"launches inside the routes {inside}")
+    log(f"small sample (per-job consumers, the flat planner declining): {N_READS_SMALL} reads, "
+        f"{n_small} ASVs all NM=0, outputs equal their pinned digests; {small['wall_s']:.2f} s; "
+        f"launches {small['launches']}; routes {json.dumps(small['routes'])}")
+    log(f"  stage seconds {small['stage_s']}; per-job routes {small['per_job_route_s']}")
     return {"launches": mesh["launches"], "port_s": mesh["wall_s"], "n_asvs": n_asvs,
             "routes": mesh["routes"]}
 
@@ -1831,7 +1861,7 @@ def cli_classify(tag: str, out_dir: Path, db_dir: Path) -> dict:
     log(f"classify {tag}: {c['pairs']} candidate pairs, {c['jobs']} jobs through kernel 1 "
         f"(NM), {c['start_jobs']} written hits through kernels 1 (payload) + 2; launches "
         f"{ln}; route {c['seconds']:.3f} s ({c['plan_s']:.3f} s of it in the flat planner) "
-        f"of {r['wall_s']:.3f} s wall, kernels 1 and 2 {c['kernel_ms']:.3f} device ms; "
+        f"of {r['wall_s']:.3f} s wall; "
         f"seconds by part {json.dumps({k: round(v, 3) for k, v in CLASSIFY_SECONDS.items()})}; "
         f"{nvidia_smi_line()}")
     return r
@@ -1862,8 +1892,8 @@ def classification(work: Path, int32_ops_per_s: float) -> dict:
     log(f"sintax: {sx['refs']} kept references, all {sx['kmer_rows_card']} rows extracted on the "
         f"card, {ln['sintax_ref_kmers']} launches each of kernels 6 and 3; route "
         f"{sx['seconds']:.3f} s ({sx['kmers_s']:.3f} s of it reading and joining the references "
-        f"on the host, {sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall, kernels "
-        f"6 + 3 {sx['kernel_ms']:.3f} device ms; {nvidia_smi_line()}")
+        f"on the host, {sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall; "
+        f"{nvidia_smi_line()}")
     out["sintax"] = r
     # the same under --profile: the same outputs, profile.pstats and a trace
     prof = work / "profile"
@@ -2270,8 +2300,9 @@ def check_asv_routes(tag: str, r: dict, n_reads: int, min_launches: int = 1) -> 
     """The device routes of cli_asv's run r: no fallback; stage 7 carrying
     at least half as many jobs as there are reads; each route every job its
     flat planner made, in at least min_launches launches of at most
-    PAIRS_PER_LAUNCH jobs that add up to them, kernel time read inside it;
-    the device EM within EM_TOLERANCE of the host EM."""
+    PAIRS_PER_LAUNCH jobs that add up to them, each launch of its kernels
+    counted by their wrappers inside the route (stage 4: kernel 1 in
+    payload mode and kernel 2; stage 7: kernel 1 in NM mode)."""
     from savont_tpu_torch.ops.align_torch import PAIRS_PER_LAUNCH
 
     s4, s7 = r["routes"]["stage4"], r["routes"]["stage7"]
@@ -2279,15 +2310,17 @@ def check_asv_routes(tag: str, r: dict, n_reads: int, min_launches: int = 1) -> 
         raise AssertionError(f"{tag}: the flat planner declined work: {r['routes']}")
     if s7["jobs"] < n_reads // 2:
         raise AssertionError(f"{tag}: stage 7 carried {s7['jobs']} jobs, under {n_reads // 2}")
-    for name, st in (("stage 4", s4), ("stage 7", s7)):
+    for name, stage, kernels in (("stage 4", "stage4", ("sw_forward_payload", "sw_walk")),
+                                 ("stage 7", "stage7", ("sw_forward_nm",))):
+        st, ln = r["routes"][stage], r["route_launches"][stage]
         if not (st["calls"] >= 1 and st["jobs"] == st["planned"] > 0
                 and sum(st["launch_jobs"]) == st["jobs"]
                 and len(st["launch_jobs"]) >= min_launches
-                and max(st["launch_jobs"]) <= PAIRS_PER_LAUNCH and st["kernel_ms"] > 0):
+                and max(st["launch_jobs"]) <= PAIRS_PER_LAUNCH
+                and all(ln[k] >= len(st["launch_jobs"]) for k in kernels)):
             raise AssertionError(f"{tag}: {name} did not carry every planned job through the "
-                                 f"kernels in {min_launches} launches or more: {st}")
-    if not s7["em_max_abs_diff"] <= EM_TOLERANCE:
-        raise AssertionError(f"{tag}: device EM differs from the host EM by {s7['em_max_abs_diff']}")
+                                 f"kernels in {min_launches} launches or more: {st}, "
+                                 f"launches inside the route {ln}")
 
 
 def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
@@ -2318,17 +2351,15 @@ def operon_phase(work: Path, int32_ops_per_s: float) -> dict:
         log(f"operon {tag} (asv --rrna-operon{' ' + ' '.join(extra) if extra else ''}): "
             f"{N_READS_OPERON} reads, {r['n_asvs']} ASVs all NM=0, outputs equal DIGESTS_OPERON; "
             f"wall {r['wall_s']:.3f} s (kernel build excluded); stage seconds {r['stage_s']}")
-        log(f"  stage 4 route {s4['seconds']:.4f} s, kernels 1-2 {s4['kernel_ms']:.3f} device ms; "
+        log(f"  stage 4 route {s4['seconds']:.4f} s; "
             f"{s4['jobs']} of {s4['planned']} planned jobs in {len(cut)} launches (cut: jobs "
             f"{s4['launch_jobs']}, padded Lq {s4['launch_lq']}, payload bytes {cut} against "
             f"PAYLOAD_BYTES {PAYLOAD_BYTES}); {s4['overflow']} pairs overflowed kernel 2 and were "
             f"counted on the host; kernel 2 at ops_max {s4['ops_max']}: {wb} B a pair, "
             f"{walk_warps_per_block(wb)} pairs a block")
-        log(f"  stage 7 route {s7['seconds']:.4f} s, kernel 1 {s7['kernel_ms']:.3f} device ms; "
+        log(f"  stage 7 route {s7['seconds']:.4f} s; "
             f"{s7['jobs']} of {s7['planned']} planned jobs in {len(s7['launch_jobs'])} launches "
-            f"(jobs {s7['launch_jobs']}, padded Lq {s7['launch_lq']}); EM {s7['em_iters']} "
-            f"iterations, max |host - device| {s7['em_max_abs_diff']:.3e} (tolerance "
-            f"{EM_TOLERANCE})")
+            f"(jobs {s7['launch_jobs']}, padded Lq {s7['launch_lq']})")
         log(f"  launches {r['launches']}; per-job routes (stage-4 votes, stages 5-6) "
             f"{r['per_job_route_s']}" + (f"; stage 1's count {json.dumps(r['stage1_count'])}"
                                          if r["stage1_count"] else ""))
@@ -2444,12 +2475,10 @@ def scale_phase(work: Path, int32_ops_per_s: float) -> dict:
             f"(kernel build excluded); stage seconds {r['stage_s']}; torch.cuda."
             f"max_memory_allocated {r['max_memory_allocated']} B")
         for name, st in (("stage 4", s4), ("stage 7", s7)):
-            log(f"  {name} route {st['seconds']:.4f} s, kernels {st['kernel_ms']:.3f} device ms; "
+            log(f"  {name} route {st['seconds']:.4f} s; "
                 f"{st['jobs']} of {st['planned']} planned jobs in {len(st['launch_jobs'])} "
                 f"launches (jobs {st['launch_jobs']}, padded Lq {st['launch_lq']})")
-        log(f"  stage 4: {s4['overflow']} pairs overflowed kernel 2, ops_max {s4['ops_max']}; "
-            f"stage 7: EM {s7['em_iters']} iterations, max |host - device| "
-            f"{s7['em_max_abs_diff']:.3e} (tolerance {EM_TOLERANCE})")
+        log(f"  stage 4: {s4['overflow']} pairs overflowed kernel 2, ops_max {s4['ops_max']}")
         log(f"  launches {r['launches']}; per-job routes (stage-4 votes, stages 5-6) "
             f"{r['per_job_route_s']}" + (f"; stage 1's count {json.dumps(r['stage1_count'])}"
                                          if r["stage1_count"] else ""))
@@ -2479,8 +2508,7 @@ def scale_phase(work: Path, int32_ops_per_s: float) -> dict:
     log(f"scale sintax: {sx['refs']} references, all rows extracted on the card, in {n_launch} "
         f"launches each of kernels 6 and 3 (chunks of {CHUNK_ROWS}); route {sx['seconds']:.3f} s "
         f"({sx['kmers_s']:.3f} s of it reading and joining the references on the host, "
-        f"{sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall, kernels 6 + 3 "
-        f"{sx['kernel_ms']:.3f} device ms")
+        f"{sx['flush_s']:.3f} s in the flushes) of {r['wall_s']:.3f} s wall")
     cls["sintax"] = r
     got = {rel: hashlib.sha256((d / rel).read_bytes()).hexdigest()
            for rel in DIGESTS_SCALE_CLASSIFICATION}
@@ -2595,15 +2623,6 @@ def rank_worker(job: str, rank: int, world: int, work: Path) -> int:
     if job != "nccl_cli":
         distributed.init(world, rank, f"file://{run}/rendezvous", "cuda",
                          backend="gloo" if job == "gloo" else "nccl")
-    abund = []  # the device EM's abundances of every stage-7 call
-    real_s7 = mesh.mesh_stage7_tie_break
-
-    def stage7(*a, **k):
-        res = real_s7(*a, **k)
-        abund.append(res[1].tolist())
-        return res
-
-    mesh.mesh_stage7_tie_break = stage7
     for m in (align_torch, sintax_torch, kmers_torch):
         m.reset_counters()
     mesh.reset_route_stats()
@@ -2614,7 +2633,7 @@ def rank_worker(job: str, rank: int, world: int, work: Path) -> int:
     out["asv_s"] = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"asv exited {rc}")
-    out.update(digests=output_digests(run / f"asv{rank}"), routes=mesh.ROUTE_STATS, abund=abund,
+    out.update(digests=output_digests(run / f"asv{rank}"), routes=mesh.ROUTE_STATS,
                asv_collectives=dict(distributed.COLLECTIVES),
                asv_launches=dict(align_torch.LAUNCHES))
     if job != "nccl_cli":
@@ -2733,10 +2752,6 @@ def ranks_phase(work: Path, mp: dict, cls: dict) -> dict:
                                      f"run's {want}, or a rank did none")
         if max(shares["sintax_refs"]) > 0.6 * one_rank_refs:
             raise AssertionError(f"{job}: the references are not split evenly: {shares['sintax_refs']}")
-        em_diff = max((abs(a - b) for o in outs[1:] for ca, cb in zip(outs[0]["abund"], o["abund"])
-                       for a, b in zip(ca, cb)), default=0.0)
-        if em_diff > EM_RANKS_TOLERANCE or len({len(o["abund"]) for o in outs}) != 1:
-            raise AssertionError(f"{job}: the ranks' device EM differ by {em_diff}")
         if queries is None:
             from savont_tpu_torch.io.fastx import read_fastx
 
@@ -2754,7 +2769,7 @@ def ranks_phase(work: Path, mp: dict, cls: dict) -> dict:
         log(f"ranks: {world} ranks over {job}: asv {[round(o['asv_s'], 2) for o in outs]} s, sintax "
             f"{[round(o['sintax_s'], 2) for o in outs]} s, every output equal to the pinned digests; "
             f"shares {json.dumps(shares)} (one rank: {json.dumps(one_rank_jobs)}, {one_rank_refs} "
-            f"references); EM between ranks {em_diff:.3e}; stage-1 count over ranks == one card "
+            f"references); stage-1 count over ranks == one card "
             f"({outs[0]['distinct']} k-mers); classify NM {len(queries)} x {len(refs)} == one rank")
     if len(worlds) == 1:
         log(f"ranks: {torch.cuda.device_count()} card: the NCCL run of one card a rank needs two")

@@ -3,8 +3,8 @@
 
 The flags mirror the JAX package's CLI (cli.rs), plus `--device` on `asv`,
 `classify` and `sintax` (the card by default; `cpu` runs the kernels' plain
-PyTorch versions) and the `asv` route flags `--stage4-backend` /
-`--stage7-backend`.  `--profile DIR` writes cProfile's profile.pstats and a
+PyTorch versions) and the `asv` route flag `--stage1-backend`.
+`--profile DIR` writes cProfile's profile.pstats and a
 torch.profiler trace, with CUDA activity when the run's device is the card.
 Under the reference's multi-process variables (parallel/distributed.py) the
 process joins a process group first; `--markdown-help` prints the CLI's
@@ -106,13 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="route of the stage-1 split-k-mer count: host (default) scans and counts on the "
         "CPU, mesh extracts on the device (kernel 4) and sorts and counts there; same outputs",
     )
-    for stage, what in ((4, "pileups"), (7, "tie-break and EM")):
-        a.add_argument(
-            f"--stage{stage}-backend", choices=["mesh", "host"], default="mesh",
-            help=f"route of the stage-{stage} {what}: mesh (default) keeps the whole step on "
-            "the device, host takes the per-job route with its host-side reduction; "
-            "same outputs",
-        )
 
     c = sub.add_parser("classify", help="Classify ASVs against a reference database")
     c.add_argument("-i", "--input-dir", required=True)

@@ -45,13 +45,6 @@ class ClusterArgs:
     # where the DP kernels of stages 4-7 run: "cuda" (the card; raises when
     # none is visible) or "cpu" (their plain PyTorch versions)
     device: str = "cuda"
-    # the routes of the stage-4 pileups and the stage-7 tie-break + EM:
-    # "mesh", the all-device routes of parallel/mesh.py (flat plan, kernels,
-    # scatter / tie sets / EM on the device), or "host", the per-job
-    # consumers with the count scatter and the tie sets on the host.  Both
-    # run their alignments on `device` and give the same outputs
-    stage4_backend: str = "mesh"
-    stage7_backend: str = "mesh"
     # the route of the stage-1 split-k-mer count: "host", the native scan and
     # count on the CPU, or "mesh", kernel 4 on `device` with the sort and
     # count there (with -b, kernel 4's per-read lists into the host count).
@@ -59,9 +52,8 @@ class ClusterArgs:
     stage1_backend: str = "host"
 
     def __post_init__(self) -> None:
-        for name in ("stage1_backend", "stage4_backend", "stage7_backend"):
-            if getattr(self, name) not in ("mesh", "host"):
-                raise ValueError(f"{name} must be 'mesh' or 'host', got {getattr(self, name)!r}")
+        if self.stage1_backend not in ("mesh", "host"):
+            raise ValueError(f"stage1_backend must be 'mesh' or 'host', got {self.stage1_backend!r}")
 
     def apply_presets(self) -> None:
         """main.rs:459-468."""

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import gzip
 import io
-import os
 from dataclasses import dataclass
 
 
@@ -41,7 +40,6 @@ def _native_lib():
         return _NATIVE
     _NATIVE_TRIED = True
     import ctypes
-    import os
 
     from ..ops.native_build import build_extra
 
@@ -219,10 +217,3 @@ def _read_fastx_python(path: str):
         else:
             raise ValueError(f"{path}: not FASTA/FASTQ")
 
-
-def write_fasta(path: str | os.PathLike, records: list[tuple[str, bytes]]) -> None:
-    with open(path, "w") as f:
-        for header, seq in records:
-            f.write(f">{header}\n")
-            f.write(seq.decode() if isinstance(seq, bytes) else seq)
-            f.write("\n")

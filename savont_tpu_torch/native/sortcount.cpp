@@ -272,154 +272,16 @@ extern "C" int64_t anchor_pack_keys(
   return w;
 }
 
-// Sorted-emission variant of anchor_pack_keys for the singleton-table
-// planner (jid_shift = 29, tid == 0, no_diag unused): minis arrive grouped
-// by job with strictly ascending query positions, and each table's
-// equal-hash runs are tpos-ascending (stable argsort over an ascending
-// scan), so emitting per job the strand- hits in REVERSE mini order
-// (qp_r = qlen-k-qp_f ascends) followed by the strand+ hits forward
-// produces keys already in ascending (jid, strand, qp, tpos) order.
-// Bit-identical to anchor_pack_keys(jid_shift=29) + radix_sort_u64 (equal
-// keys are fully identical, so stability is unobservable); parallel over
-// jobs via per-job output offsets.
-extern "C" int64_t anchor_pack_keys_sorted(
-    const int64_t *lo, const int64_t *cnt, const int64_t *job_moff,
-    int64_t n_jobs, const int32_t *all_p, const uint8_t *all_f,
-    const int64_t *qlens_j, const int32_t *h_tpos, const uint8_t *h_isf,
-    int k, uint64_t *keys, int threads) {
-  std::vector<int64_t> out_off(n_jobs + 1, 0);
-  for (int64_t j = 0; j < n_jobs; j++) {
-    int64_t t = 0;
-    for (int64_t m = job_moff[j]; m < job_moff[j + 1]; m++)
-      t += cnt[m];
-    out_off[j + 1] = out_off[j] + t;
-  }
-#pragma omp parallel for schedule(dynamic, 64)                                 \
-    num_threads(threads > 0 ? threads : 1)
-  for (int64_t jb = 0; jb < n_jobs; jb++) {
-    const uint64_t base = (uint64_t)jb << 29;
-    uint64_t *w = keys + out_off[jb];
-    for (int64_t m = job_moff[jb + 1] - 1; m >= job_moff[jb]; m--) {
-      const uint64_t qp_r = (uint64_t)(qlens_j[jb] - k - all_p[m]);
-      for (int64_t t = lo[m]; t < lo[m] + cnt[m]; t++)
-        if (h_isf[t] != all_f[m])
-          *w++ = base | (qp_r << 14) | (uint64_t)h_tpos[t];
-    }
-    for (int64_t m = job_moff[jb]; m < job_moff[jb + 1]; m++) {
-      const uint64_t qp_f = (uint64_t)all_p[m];
-      for (int64_t t = lo[m]; t < lo[m] + cnt[m]; t++)
-        if (h_isf[t] == all_f[m])
-          *w++ = base | (1ULL << 28) | (qp_f << 14) | (uint64_t)h_tpos[t];
-    }
-  }
-  return out_off[n_jobs];
-}
-
-// Multi-table variant of anchor_search: query i does its range lookup in
-// table gid[i] (h_cat[tab_off[g] .. tab_off[g+1]], each slice sorted); lo
-// positions are GLOBAL into h_cat, so anchor_pack_keys can consume the
-// concatenated per-table metadata arrays directly.  Replaces a Python
-// per-target-group loop of anchor_search calls (the SoA pair planner makes
-// one call per unique target; at small N the ctypes marshalling dominated).
-//
-// When lookups dwarf the table sizes (every read's minimizers probing a
-// handful of tiny consensus tables — the stage-4/7 SoA shape), the binary
-// searches are replaced by per-table open-addressing maps over the
-// distinct-key runs (key -> (global lo, run length)).  Build is one O(n_h)
-// sweep; lookups become 1-2 probes.  Results are bit-identical: the map
-// stores exactly the (lower_bound, range length) pair the search returns,
-// and misses report cnt = 0 (lo is never read when cnt == 0).
-extern "C" int64_t anchor_search_multi(
-    const uint64_t *h_cat, const int64_t *tab_off, int64_t n_tables,
-    const int32_t *gid, const uint64_t *q, int64_t n, int64_t *lo,
-    int64_t *cnt, int threads) {
-  const int64_t n_h = n_tables > 0 ? tab_off[n_tables] : 0;
-  int64_t total = 0;
-  if (n_tables > 0 && n >= 4096 && n >= 4 * n_h) {
-    // power-of-two capacity >= 2x slice length per table, shared arena
-    std::vector<int64_t> cap_off(n_tables + 1, 0);
-    std::vector<int> shift(n_tables, 64);
-    for (int64_t g = 0; g < n_tables; g++) {
-      const int64_t len = tab_off[g + 1] - tab_off[g];
-      int64_t c = 0;
-      if (len > 0) {
-        c = 16;
-        int lg = 4;
-        while (c < 2 * len) {
-          c <<= 1;
-          lg++;
-        }
-        shift[g] = 64 - lg;
-      }
-      cap_off[g + 1] = cap_off[g] + c;
-    }
-    std::vector<uint64_t> hkey(cap_off[n_tables]);
-    std::vector<int64_t> hlo(cap_off[n_tables]);
-    std::vector<int64_t> hcnt(cap_off[n_tables], 0); // 0 = empty slot
-    const uint64_t MUL = 0x9E3779B97F4A7C15ULL;
-    for (int64_t g = 0; g < n_tables; g++) {
-      uint64_t *kk = hkey.data() + cap_off[g];
-      int64_t *ll = hlo.data() + cap_off[g];
-      int64_t *cc = hcnt.data() + cap_off[g];
-      const uint64_t mask = (uint64_t)(cap_off[g + 1] - cap_off[g]) - 1;
-      int64_t i = tab_off[g];
-      while (i < tab_off[g + 1]) {
-        int64_t j = i + 1;
-        while (j < tab_off[g + 1] && h_cat[j] == h_cat[i])
-          j++;
-        uint64_t s = (h_cat[i] * MUL) >> shift[g];
-        while (cc[s])
-          s = (s + 1) & mask;
-        kk[s] = h_cat[i];
-        ll[s] = i;
-        cc[s] = j - i;
-        i = j;
-      }
-    }
-#pragma omp parallel for schedule(static) reduction(+ : total)                \
-    num_threads(threads > 0 ? threads : 1)
-    for (int64_t i = 0; i < n; i++) {
-      const int64_t g = gid[i];
-      if (cap_off[g + 1] == cap_off[g]) {
-        lo[i] = tab_off[g];
-        cnt[i] = 0;
-        continue;
-      }
-      const uint64_t *kk = hkey.data() + cap_off[g];
-      const int64_t *ll = hlo.data() + cap_off[g];
-      const int64_t *cc = hcnt.data() + cap_off[g];
-      const uint64_t mask = (uint64_t)(cap_off[g + 1] - cap_off[g]) - 1;
-      uint64_t s = (q[i] * MUL) >> shift[g];
-      while (cc[s] && kk[s] != q[i])
-        s = (s + 1) & mask;
-      lo[i] = cc[s] ? ll[s] : tab_off[g];
-      cnt[i] = cc[s];
-      total += cnt[i];
-    }
-    return total;
-  }
-#pragma omp parallel for schedule(static) num_threads(threads > 0 ? threads : 1)
-  for (int64_t i = 0; i < n; i++) {
-    const uint64_t *b = h_cat + tab_off[gid[i]];
-    const uint64_t *e = h_cat + tab_off[gid[i] + 1];
-    const uint64_t *l = std::lower_bound(b, e, q[i]);
-    const uint64_t *r = std::upper_bound(l, e, q[i]);
-    lo[i] = l - h_cat;
-    cnt[i] = r - l;
-  }
-  for (int64_t i = 0; i < n; i++) total += cnt[i];
-  return total;
-}
-
 // ── fused indexed anchor planning ──────────────────────────────────────────
 // The SoA planner's per-job mini expansion (np.repeat + 3 gathers to ~35M
 // elements at 100k reads) cost more than every native call it fed.  These
 // two functions consume the POOLED per-unique-query minimizers directly:
 // job j probes pool_h[q_moff[uq[j]] .. q_moff[uq[j]+1]) against its target
-// table ti[j] and emits the same packed keys anchor_pack_keys_sorted would,
-// in the same order (strand- hits in reverse mini order, then strand+
-// forward; keys ascend with job id) — bit-identical by construction and
-// pinned by the Python-path parity test.
+// table ti[j] and emits the packed keys anchor_pack_keys(jid_shift = 29)
+// would, already in radix_sort_u64's order: per job the strand- hits in
+// reverse mini order, then the strand+ hits forward (qp ascends in both,
+// each table's equal-hash runs are tpos-ascending, keys ascend with job
+// id).
 //
 // Protocol: anchor_count_hits_idx fills job_off[n_jobs+1] and returns the
 // total; the caller allocates keys[total] and calls anchor_pack_keys_idx.

@@ -730,9 +730,3 @@ def map_query(
         results = results[:max_hits]
     return results
 
-
-def align_pair(query_ascii, target_ascii, band: int | None = None) -> Mapping | None:
-    """Single-pair alignment (one-target index)."""
-    idx = TargetIndex([target_ascii])
-    hits = map_query(idx, query_ascii, band=band, min_anchors=2)
-    return hits[0] if hits else None

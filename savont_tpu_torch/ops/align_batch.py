@@ -35,8 +35,6 @@ from .align import (
     resolve_band,
 )
 from .align_torch import (
-    events_ms,
-    kernel_events,
     length_chunks_lens,
     plan_tensors,
     plan_to_device,
@@ -631,11 +629,10 @@ def align_pairs_nm_values_indexed(
 
 # the classify route's counters: calls, input pairs, plan jobs run through
 # kernel 1 (NM mode), winning jobs run again through kernel 1 (payload mode)
-# + kernel 2 for their starts, wall seconds inside and of them in the flat
-# planner, and device milliseconds of those launches (CUDA events read after
-# the route's last fetch; 0.0 on the CPU)
+# + kernel 2 for their starts, and wall seconds inside and of them in the
+# flat planner
 CLASSIFY_STATS = {"calls": 0, "pairs": 0, "jobs": 0, "start_jobs": 0, "seconds": 0.0,
-                  "plan_s": 0.0, "kernel_ms": 0.0}
+                  "plan_s": 0.0}
 SLAB_PAIRS = 1 << 20  # pairs planned at once: below the flat plan's 2^21-job key field
 
 
@@ -665,10 +662,7 @@ def align_pairs_nm_indexed(
     stats["calls"] += 1
     stats["pairs"] += len(qi)
     with span(None, stats, "seconds"):
-        with kernel_events() as events:
-            out = _classify_route(queries, targets, qi, ti, band, device, groups, stats)
-        stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
-    return out
+        return _classify_route(queries, targets, qi, ti, band, device, groups, stats)
 
 
 def classify_nm_slabs(queries, targets, qi, ti, band: int, dev, stats=None):

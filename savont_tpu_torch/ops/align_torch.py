@@ -14,7 +14,6 @@ the CPU, and for CUDA tensors launches the kernel or raises.
 """
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -42,39 +41,11 @@ def reset_counters() -> None:
             d[k] = 0
 
 
-# the (start, end) CUDA events of the launches of kernels 1 and 2 made inside
-# a kernel_events() block; None outside one
-_EVENTS: list | None = None
-
-
 @contextmanager
-def kernel_events():
-    """Collect a pair of CUDA events around every launch of kernels 1 and 2
-    made inside the block, and yield the list.  Recording costs no
-    synchronisation; read the list with events_ms once the work has been
-    fetched.  On the CPU nothing is launched and the list stays empty."""
-    global _EVENTS
-    outer, _EVENTS = _EVENTS, []
-    try:
-        yield _EVENTS
-    finally:
-        _EVENTS = outer
-
-
-def events_ms(events: list) -> float:
-    """Milliseconds of device time between the events of each pair, summed.
-    Call it after a fetch that followed the last launch: the events have
-    then completed and this waits for nothing."""
-    if events:
-        events[-1][1].synchronize()
-    return float(sum(start.elapsed_time(end) for start, end in events))
-
-
-@contextmanager
-def timed_launch(device):
-    """The launch context of a kernel wrapper: `device` current, and inside a
-    kernel_events() block an event recorded just before and just after.
-    The inputs must lie on the current card: a rank on another card
+def launch_on(device):
+    """The launch context of a kernel wrapper: `device` current.  It records
+    no event: device time is read from a profiler trace.  The inputs must
+    lie on the current card: a rank on another card
     (parallel/distributed.py) made its own current before it allocated
     anything, and a tensor elsewhere means it did not."""
     if device.index is not None and device.index != torch.cuda.current_device():
@@ -82,42 +53,7 @@ def timed_launch(device):
                            f"cuda:{torch.cuda.current_device()}: make the rank's card current "
                            "(torch.cuda.set_device) before its first allocation")
     with torch.cuda.device(device):
-        if _EVENTS is None:
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         yield
-        end.record()
-        _EVENTS.append((start, end))
-
-
-class PartClock:
-    """Seconds of a route's consecutive parts, added into a stats dict by
-    name: on the card the time between CUDA events recorded at the marks
-    (no wait until add_to), on the CPU the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = [("", self._now())]
-
-    def _now(self):
-        if not self.cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def mark(self, name: str) -> None:
-        """End the part `name` here."""
-        self.marks.append((name, self._now()))
-
-    def add_to(self, stats: dict) -> None:
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            stats[name] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
 
 
 def jobs_to_tensors(jobs, device) -> tuple[torch.Tensor, ...]:
@@ -273,7 +209,7 @@ def sw_forward(q, t, lo, tlens, band: int, emit_payload: bool = False, device=No
     else:
         out = torch.empty((B, 4), dtype=torch.int32, device=q.device)
         payload = None
-    with timed_launch(q.device):
+    with launch_on(q.device):
         rc = lib.sw_forward_launch(
             q.data_ptr(), t.data_ptr(), lo.data_ptr(), tlens.data_ptr(),
             B, Lq, t.shape[1], band, MATCH, MISMATCH, GAP_OPEN, GAP_EXT,

@@ -18,15 +18,22 @@ BIT-IDENTICAL to the reference-shaped Python loop — tests/test_em.py pins
 that.
 
 `em_abundances_torch` is the same fixed point in float32 on a torch device
-(index_add_ + a Python loop) for the device route of stage 7; it converges
-to the same answer but is not bit-pinned: float32 index_add_ on a CUDA
-device adds in no fixed order.
+(index_add_ + a Python loop); it converges to the same answer but is not
+bit-pinned: float32 index_add_ on a CUDA device adds in no fixed order.
+With `stage7_tie_sets` and `stage7_em` it is the port's counterpart of the
+JAX package's stage-7 device step (parallel/mesh.py sharded_stage7_align's
+tie-set closure, sharded_stage7_em), held to it by the tests.  No route
+calls the three: the emitted depths come from the host float64 EM
+(pipeline/stage7_em._run_em), which matches the reference's loop bit for
+bit, where a float32 EM on the card would not.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["em_abundances", "em_abundances_torch", "groups_to_rows"]
+__all__ = ["em_abundances", "em_abundances_torch", "groups_to_rows", "stage7_em", "stage7_tie_sets"]
+
+EM_CONV = 0.01  # stage7_em stops below EM_CONV / assigned reads, as the host EM does
 
 
 def groups_to_rows(groups) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -117,3 +124,54 @@ def em_abundances_torch(
     if stats is not None:
         stats["iters"] = it
     return abund
+
+
+def stage7_tie_sets(score, nm, row_read, row_asv, n_asvs: int):
+    """Tie-set closure over flat job rows (the reference's
+    _stage7_align_local after its forward): a row is valid when its score
+    is positive; the winner of a (read, ASV) is its highest score, the
+    earliest row on ties; a read's tie set is its winners at its least NM.
+    score / nm int32 and row_read / row_asv int64 tensors of one length, in
+    plan order.  Returns in_tie (bool).  No route calls it (module
+    docstring)."""
+    import torch
+
+    n = score.shape[0]
+    dev = score.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    valid = score > 0
+    key = score.long() * n - torch.arange(n, device=dev)
+    _, grp = torch.unique(row_read * n_asvs + row_asv, return_inverse=True)
+    lowest = torch.iinfo(torch.int64).min
+    best = torch.full((int(grp.max()) + 1,), lowest, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, grp, torch.where(valid, key, lowest), "amax", include_self=True)
+    winner = valid & (key == best[grp])
+    big = 1 << 20
+    _, rd = torch.unique(row_read, return_inverse=True)
+    nm_eff = torch.where(winner, nm.long(), big)
+    best_nm = torch.full((int(rd.max()) + 1,), big, dtype=torch.int64, device=dev)
+    best_nm.scatter_reduce_(0, rd, nm_eff, "amin", include_self=True)
+    return winner & (nm_eff == best_nm[rd])
+
+
+def stage7_em(in_tie, row_read, row_asv, n_asvs: int, em_iters: int, conv: float = EM_CONV,
+              stats: dict | None = None):
+    """EM fixed point over the tie sets (the reference's _stage7_em_local):
+    every assigned read weighs 1, responsibilities are proportional to the
+    abundances inside its tie set, uniform start, stop at em_iters or when
+    the largest change falls below conv / assigned reads.  Returns (abund
+    (n_asvs,) float32 on the rows' device, assigned read count).  No route
+    calls it (module docstring)."""
+    import torch
+
+    rd_all = row_read[in_tie]
+    if rd_all.numel() == 0:
+        return torch.full((n_asvs,), 1.0 / n_asvs, dtype=torch.float32, device=in_tie.device), 0
+    reads, rd = torch.unique(rd_all, return_inverse=True)
+    count = int(reads.numel())
+    abund = em_abundances_torch(
+        rd, row_asv[in_tie], torch.ones(count, dtype=torch.float32, device=in_tie.device),
+        n_asvs, float(count), conv / count, em_iters, stats,
+    )
+    return abund, count

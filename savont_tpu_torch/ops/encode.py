@@ -84,27 +84,6 @@ def decode_kmer(kmer: int, k: int) -> str:
     return "".join(out)
 
 
-def encode_kmer(s: str) -> int:
-    v = 0
-    for ch in s:
-        v = (v << 2) | int(_BYTE_TO_CODE[ord(ch)])
-    return v
-
-
-def revcomp_kmer(kmer: np.ndarray | int, k: int) -> np.ndarray | int:
-    """Reverse-complement of packed k-mer(s) (complement bits then reverse pairs)."""
-    v = np.asarray(kmer, dtype=U64)
-    mask = U64((1 << (2 * k)) - 1)
-    v = (~v) & mask  # complement each base (3 - b)
-    out = np.zeros_like(v)
-    for _ in range(k):
-        out = (out << U64(2)) | (v & U64(3))
-        v = v >> U64(2)
-    if np.isscalar(kmer) or getattr(kmer, "shape", None) == ():
-        return int(out)
-    return out
-
-
 def mm_hash64(v: np.ndarray | int) -> np.ndarray | int:
     """Invertible murmur-style 64-bit mix (seeding.rs:18-28, miniprot-derived).
 
@@ -120,38 +99,6 @@ def mm_hash64(v: np.ndarray | int) -> np.ndarray | int:
         key = (key + (key << U64(2))) + (key << U64(4))
         key = key ^ (key >> U64(28))
         key = key + (key << U64(31))
-    return int(key) if scalar else key
-
-
-def rev_hash64(hashed: np.ndarray | int) -> np.ndarray | int:
-    """Inverse of mm_hash64 (seeding.rs:31-65) — recovers the k-mer from its
-    hash (the reference uses this to decode minimizer hashes)."""
-    scalar = np.isscalar(hashed) or getattr(hashed, "shape", None) == ()
-    key = np.asarray(hashed, dtype=U64).copy()
-    with np.errstate(over="ignore"):
-        # invert key += key << 31
-        tmp = key - (key << U64(31))
-        key = key - (tmp << U64(31))
-        # invert key ^= key >> 28
-        tmp = key ^ (key >> U64(28))
-        key = key ^ (tmp >> U64(28))
-        # invert key = (key + (key<<2)) + (key<<4)  (i.e. key *= 21)
-        key = key * U64(14933078535860113213)
-        # invert key ^= key >> 14
-        tmp = key ^ (key >> U64(14))
-        tmp = key ^ (tmp >> U64(14))
-        tmp = key ^ (tmp >> U64(14))
-        key = key ^ (tmp >> U64(14))
-        # invert key = (key + (key<<3)) + (key<<8)  (i.e. key *= 265)
-        key = key * U64(15244667743933553977)
-        # invert key ^= key >> 24
-        tmp = key ^ (key >> U64(24))
-        key = key ^ (tmp >> U64(24))
-        # invert key = (~key) + (key << 21)
-        tmp = ~key
-        tmp = ~(key - (tmp << U64(21)))
-        tmp = ~(key - (tmp << U64(21)))
-        key = ~(key - (tmp << U64(21)))
     return int(key) if scalar else key
 
 

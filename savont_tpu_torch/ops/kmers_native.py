@@ -564,18 +564,6 @@ def sort_unique_batch_flat_native(
     return out, off[:-1], cnt
 
 
-def sort_unique_batch_native(
-    arrays: list[np.ndarray], threads: int = 4
-) -> list[np.ndarray] | None:
-    """Per-array np.unique (sorted dedup) for many small u64 arrays in one
-    threaded native call; None without the library."""
-    res = sort_unique_batch_flat_native(arrays, threads)
-    if res is None:
-        return None
-    out, start, cnt = res
-    return [out[s : s + c] for s, c in zip(start.tolist(), cnt.tolist())]
-
-
 def mini_mask_join_native(
     keys: np.ndarray, masks: np.ndarray,
     q_flat: np.ndarray, q_start: np.ndarray, q_cnt: np.ndarray,
@@ -963,14 +951,6 @@ def get_sort_lib():
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int,
         ]
-        lib.anchor_search_multi.restype = ctypes.c_int64
-        lib.anchor_search_multi.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int,
-        ]
         lib.anchor_pack_keys.restype = ctypes.c_int64
         lib.anchor_pack_keys.argtypes = [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
@@ -980,15 +960,6 @@ def get_sort_lib():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
-        ]
-        lib.anchor_pack_keys_sorted.restype = ctypes.c_int64
-        lib.anchor_pack_keys_sorted.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
         ]
         lib.anchor_count_hits_idx.restype = ctypes.c_int64
         lib.anchor_count_hits_idx.argtypes = [
@@ -1025,9 +996,9 @@ def anchor_keys_indexed_native(
     POOLED minimizers (pool_h[q_moff[uq]:q_moff[uq+1]]) against its target
     table and emits packed sorted keys directly — no per-job expansion of
     the mini pools on the host (np.repeat + gathers to tens of millions of
-    elements cost more than every native call they fed).  Bit-identical to
-    anchor_search_multi + anchor_sorted_keys_singleton over the expanded
-    arrays (tests pin it).  Returns keys or None without the library."""
+    elements cost more than every native call they fed).  The keys are
+    anchor_sorted_keys_native(jid_shift=29)'s over the expanded arrays.
+    Returns keys or None without the library."""
     lib = get_sort_lib()
     if lib is None or not hasattr(lib, "anchor_count_hits_idx"):
         return None
@@ -1086,31 +1057,6 @@ def anchor_search_native(
     return lo, cnt, int(total)
 
 
-def anchor_search_multi_native(
-    h_cat: np.ndarray, tab_off: np.ndarray, gid: np.ndarray,
-    queries: np.ndarray, threads: int = 4,
-) -> tuple[np.ndarray, np.ndarray, int] | None:
-    """Range lookup of query hashes, each in its own sorted table slice
-    (h_cat[tab_off[g]:tab_off[g+1]] for g = gid[i]); lo positions are
-    global into h_cat.  One call replaces the per-target-group
-    anchor_search loop.  Returns (lo, cnt, total) or None."""
-    lib = get_sort_lib()
-    if lib is None:
-        return None
-    n = len(queries)
-    lo = np.empty(n, dtype=np.int64)
-    cnt = np.empty(n, dtype=np.int64)
-    total = lib.anchor_search_multi(
-        _ptr(np.ascontiguousarray(h_cat, np.uint64), ctypes.c_uint64),
-        _ptr(np.ascontiguousarray(tab_off, np.int64), ctypes.c_int64),
-        len(tab_off) - 1,
-        _ptr(np.ascontiguousarray(gid, np.int32), ctypes.c_int32),
-        _ptr(np.ascontiguousarray(queries, np.uint64), ctypes.c_uint64), n,
-        _ptr(lo, ctypes.c_int64), _ptr(cnt, ctypes.c_int64), threads,
-    )
-    return lo, cnt, int(total)
-
-
 def anchor_sorted_keys_native(
     lo: np.ndarray, cnt: np.ndarray, all_p: np.ndarray, all_f: np.ndarray,
     qid: np.ndarray, qlens: np.ndarray, h_tid: np.ndarray, h_tpos: np.ndarray,
@@ -1144,36 +1090,6 @@ def anchor_sorted_keys_native(
     keys = keys[:n]
     lib.radix_sort_u64(_ptr(keys, ctypes.c_uint64), n, threads)
     return keys
-
-
-def anchor_sorted_keys_singleton_native(
-    lo: np.ndarray, cnt: np.ndarray, job_moff: np.ndarray,
-    all_p: np.ndarray, all_f: np.ndarray, qlens_j: np.ndarray,
-    h_tpos: np.ndarray, h_isf: np.ndarray, k: int, threads: int,
-) -> np.ndarray | None:
-    """Singleton-table twin of anchor_sorted_keys_native(jid_shift=29):
-    direct sorted emission (per job: strand- hits in reverse mini order,
-    then strand+ forward) — no radix sort.  Bit-identical keys; parity is
-    enforced by tests/test_native.py.  job_moff[j]:job_moff[j+1] is job j's
-    mini range; qlens_j is per JOB (already gathered)."""
-    lib = get_sort_lib()
-    if lib is None:
-        return None
-    total = int(cnt.sum())
-    keys = np.empty(total, dtype=np.uint64)
-    n = lib.anchor_pack_keys_sorted(
-        _ptr(np.ascontiguousarray(lo, np.int64), ctypes.c_int64),
-        _ptr(np.ascontiguousarray(cnt, np.int64), ctypes.c_int64),
-        _ptr(np.ascontiguousarray(job_moff, np.int64), ctypes.c_int64),
-        len(job_moff) - 1,
-        _ptr(np.ascontiguousarray(all_p, np.int32), ctypes.c_int32),
-        _ptr(np.ascontiguousarray(all_f, np.uint8), ctypes.c_uint8),
-        _ptr(np.ascontiguousarray(qlens_j, np.int64), ctypes.c_int64),
-        _ptr(np.ascontiguousarray(h_tpos, np.int32), ctypes.c_int32),
-        _ptr(np.ascontiguousarray(h_isf, np.uint8), ctypes.c_uint8),
-        k, _ptr(keys, ctypes.c_uint64), threads,
-    )
-    return keys[:n]
 
 
 def snpmer_join_count_native(

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .align_torch import PartClock, timed_launch
+from .align_torch import launch_on
 from .build import build_kernels
 from .kmers_native import _concat
 
@@ -139,7 +139,7 @@ def split_kmers_launch(batch: ReadBatch, min_bq: int, keys, valid):
     """Launch kernel 4 into keys / valid (n_pos each) without checking:
     what a timing queues back to back."""
     lib = build_kernels()
-    with timed_launch(keys.device):
+    with launch_on(keys.device):
         rc = lib.split_kmers_launch(
             batch.codes.data_ptr(), batch.phred.data_ptr() if batch.phred is not None else None,
             batch.off.data_ptr(), batch.out_off.data_ptr(), batch.off.shape[0] - 1, batch.k,
@@ -273,7 +273,7 @@ def syncmer_batch(batch: ReadBatch, c: int) -> tuple[torch.Tensor, torch.Tensor]
 def syncmer_launch(batch: ReadBatch, c: int, flags, kmers):
     """Launch kernel 5 into flags / kmers (n_pos each) without checking."""
     lib = build_kernels()
-    with timed_launch(flags.device):
+    with launch_on(flags.device):
         rc = lib.syncmers_launch(
             batch.codes.data_ptr(), batch.off.data_ptr(), batch.out_off.data_ptr(),
             batch.off.shape[0] - 1, batch.k, batch.k - c + 1, flags.data_ptr(),
@@ -310,16 +310,13 @@ def syncmer_batch_reference(batch: ReadBatch, c: int) -> tuple[torch.Tensor, tor
 
 
 def flagged_on_device(code_list, phred_list, k: int, min_bq: int, dev: torch.device,
-                      clock: PartClock, per_read: bool = False):
+                      per_read: bool = False):
     """The reads' flagged canonical split k-mers on `dev`: one upload,
-    kernel 4, and the valid keys compacted on the device, with `clock`
-    marked at the end of upload_s, kernel4_s and compact_s.  Returns (the
+    kernel 4, and the valid keys compacted on the device.  Returns (the
     batch, the kept keys int64 in read and position order, and with
     per_read each read's (N + 1,) bounds into them, else None)."""
     batch = read_batch(code_list, phred_list, k, dev)
-    clock.mark("upload_s")
     keys, valid = split_kmers_batch(batch, min_bq)
-    clock.mark("kernel4_s")
     v = valid.bool()
     kept = keys[v]
     bounds = None
@@ -327,7 +324,6 @@ def flagged_on_device(code_list, phred_list, k: int, min_bq: int, dev: torch.dev
         seen = torch.zeros(batch.n_pos + 1, dtype=torch.int64, device=dev)
         seen[1:] = torch.cumsum(v, 0)
         bounds = seen[batch.out_off]
-    clock.mark("compact_s")
     return batch, kept, bounds
 
 
@@ -336,16 +332,11 @@ def device_split_kmers(code_list, phred_list, k: int, min_bq: int, device,
     """Stage-1 extraction on `device`: per read, its flagged canonical
     split k-mers (uint64, bit 63 the strand flag) in position order, what
     ops.kmers.split_kmer_mid returns.  flagged_on_device, then one fetch.
-    With `stats`, its parts' seconds are added to upload_s, kernel4_s,
-    compact_s and fetch_s, and the sizes to positions and flagged."""
+    With `stats`, the sizes are added to positions and flagged."""
     dev = resolve_device(device)
-    clock = PartClock(dev)
-    batch, kept, bounds = flagged_on_device(code_list, phred_list, k, min_bq, dev, clock,
-                                            per_read=True)
+    batch, kept, bounds = flagged_on_device(code_list, phred_list, k, min_bq, dev, per_read=True)
     bounds, flat = bounds.cpu().numpy(), kept.cpu().numpy().view(np.uint64)
-    clock.mark("fetch_s")
     if stats is not None:
-        clock.add_to(stats)
         stats["positions"] += batch.n_pos
         stats["flagged"] += len(flat)
     return [flat[a:b] for a, b in zip(bounds[:-1], bounds[1:])]

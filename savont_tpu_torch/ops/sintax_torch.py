@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .align_torch import timed_launch
+from .align_torch import launch_on
 from .build import build_kernels
 from .kmers_torch import _pack
 
@@ -252,7 +252,7 @@ def sintax_scores_rows_launch(index: QueryIndex, kmers, row_off, ridx, acc) -> t
     if acc.device.type != "cuda":
         raise ValueError(f"sintax_scores_rows_launch needs CUDA tensors, got {acc.device}")
     lib = build_kernels()
-    with timed_launch(acc.device):
+    with launch_on(acc.device):
         rc = lib.sintax_scores_launch(
             index.keys.data_ptr(), index.keys.shape[0], index.off.data_ptr(),
             index.pairs.data_ptr(), index.n_pairs, kmers.data_ptr(), row_off.data_ptr(),
@@ -294,7 +294,7 @@ def sintax_ref_kmers_launch(rows: RefRows, out: torch.Tensor) -> torch.Tensor:
     if out.device.type != "cuda":
         raise ValueError(f"sintax_ref_kmers_launch needs CUDA tensors, got {out.device}")
     lib = build_kernels()
-    with timed_launch(out.device):
+    with launch_on(out.device):
         rc = lib.sintax_ref_kmers_launch(
             rows.seqs.data_ptr(), rows.seqs.shape[0], rows.off.data_ptr(), rows.row_off.data_ptr(),
             rows.off.shape[0] - 1, rows.max_n, out.data_ptr(), torch.cuda.current_stream().cuda_stream,

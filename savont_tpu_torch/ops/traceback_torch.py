@@ -19,7 +19,7 @@ from .align_torch import (
     jobs_to_tensors,
     length_chunks,
     sw_forward,
-    timed_launch,
+    launch_on,
 )
 from .build import build_kernels
 from .host_dp import run_jobs_host
@@ -91,7 +91,7 @@ def walk_rle_launch(payload, lo, score, ri, bj, band: int, ops_max: int, maxrun:
                          f"bytes must fit a block's 227 KB of shared memory")
     cigar = torch.empty((B, maxrun), dtype=torch.int32, device=payload.device)
     meta = torch.empty((B, 6), dtype=torch.int32, device=payload.device)
-    with timed_launch(payload.device):
+    with launch_on(payload.device):
         rc = lib.sw_walk_launch(
             payload.data_ptr(), lo.data_ptr(), score.data_ptr(), ri.data_ptr(),
             bj.data_ptr(), B, Lq, band, ops_max, maxrun, cigar.data_ptr(),

@@ -2,17 +2,18 @@
 
 Counterparts of the JAX package's parallel/mesh.py mesh_stage4_pileups and
 mesh_stage7_tie_break (its SAVONT_STAGE4_BACKEND / SAVONT_STAGE7_BACKEND =
-mesh configuration).  Both plan their pairs with the flat planner
-(ops/align_batch._plan_soa_indexed), pack kernel 1's tensors from the flat
-plan on the device (ops/align_torch.plan_tensors) and keep what follows the
-alignment on the device too:
+mesh configuration), and the only routes of stages 4 and 7.  Both plan
+their pairs with the flat planner (ops/align_batch._plan_soa_indexed) and
+pack kernel 1's tensors from the flat plan on the device
+(ops/align_torch.plan_tensors):
 
   stage 4  kernel 1 (payload mode) + kernel 2 + the count-matrix scatter
            (ops/pileup_torch), the counts accumulated across launches and
            fetched once at the end;
-  stage 7  kernel 1 (NM mode), the per-(read, ASV) winner and tie-set
-           closure, and the EM fixed point in float32 (ops/em.
-           em_abundances_torch).
+  stage 7  kernel 1 (NM mode) and one fetch of (score, nm); each pair's
+           winning job is picked on the host (_winners).  The tie sets and
+           the EM run on the host (pipeline/stage7_em.py), whose float64 EM
+           gives the emitted depths.
 
 Neither route is one fetch from end to end: the host reads device values,
 and so waits for the device, at these points.  Each launch of either route
@@ -23,8 +24,7 @@ ops/pileup_torch.sw_pileup_counts for the pair winners' count
 (pair_winners), kernel 2's input check (walk_rle), the scatter's largest
 run count (add_pileup_counts), the two torch.nonzero of the rows it counts
 and of the overflow rows, and the overflow list (.tolist() below).  Stage 7
-waits at the tie sets' segment counts (int(grp.max()), int(rd.max())), once
-an EM iteration (ops/em.py), and at the fetch of (score, nm).
+waits at nothing else but its one fetch of (score, nm).
 
 The reference packs (rows, slots) panels with empty slots, a shape its
 static-shape compiler needs; here the jobs stay flat rows with an owner
@@ -44,12 +44,8 @@ reference's shard_map over the mesh does:
            picked among them); all_reduce(SUM) of the integer count
            buffers, and of the host counts of kernel-2 overflows.  Exact.
   stage 7  a contiguous range of whole pairs a rank, balanced by cells;
-           all_gather of (score, nm) in plan order, then the tie sets and
-           the EM on the whole arrays on every rank.  The reference psums
-           the EM's numerators over the mesh at every iteration instead.
-           Here the arrays are tiny, a collective an iteration would add a
-           wait to each on top of the one it has (ops/em.py), and an EM run
-           whole on every rank equals one rank's exactly.
+           all_gather of (score, nm) in plan order, then the winners on the
+           whole arrays on every rank.
 
 When the flat planner declines an input (None: sizes outside its packed key
 widths) a route hands the work to the per-job consumers, which launch the
@@ -69,16 +65,13 @@ import logging
 import numpy as np
 import torch
 
-from ..constants import EM_MAX_ITERATIONS
 from ..device import resolve_device
 from ..ops import traceback_torch
 from ..ops.align import resolve_band
 from ..ops.align_batch import _plan_soa_indexed, align_pairs_nm_values_indexed, plan_job
 from ..ops.align_torch import (
-    LAUNCHES, PartClock, events_ms, gather_rows, kernel_events, length_chunks_lens,
-    plan_tensors, plan_to_device, sw_forward,
+    LAUNCHES, gather_rows, length_chunks_lens, plan_tensors, plan_to_device, sw_forward,
 )
-from ..ops.em import em_abundances_torch
 from ..ops.encode import _RC_TABLE
 from ..ops.host_dp import run_jobs_host
 from ..ops.kmers_torch import BARE, flagged_on_device
@@ -89,23 +82,17 @@ from .distributed import all_gather_rows, all_reduce_, all_to_all_rows, my_share
 
 log = logging.getLogger("savont")
 
-EM_CONV = 0.01  # the fixed point stops below EM_CONV / assigned reads, as the host EM does
-
 # per route: calls, calls that fell to the per-job consumers (the planner
-# returned None), wall seconds inside, device milliseconds of its launches of
-# kernels 1 and 2 (CUDA events around each launch, read after the route's
-# last fetch; 0.0 on the CPU), plan jobs made by the flat planner and run by
-# this rank, the launch cut (per launch of kernel 1 its jobs and padded
-# query length; stage 4: the largest ops_max its kernel-2 launches took), and
-# of the last call the EM iterations (stage 7) and the pairs whose CIGAR
-# overflowed kernel 2 and were counted on the host (stage 4); em_max_abs_diff is the largest difference between the device EM's
-# abundances and the host float64 EM's (em_cross_check)
+# returned None), wall seconds inside, plan jobs made by the flat planner and
+# run by this rank, the launch cut (per launch of kernel 1 its jobs and
+# padded query length; stage 4: the largest ops_max its kernel-2 launches
+# took), and of the last stage-4 call the pairs whose CIGAR overflowed
+# kernel 2 and were counted on the host
 ROUTE_STATS = {
-    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "planned": 0,
-               "jobs": 0, "launch_jobs": [], "launch_lq": [], "ops_max": 0, "overflow": 0},
-    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "kernel_ms": 0.0, "planned": 0,
-               "jobs": 0, "launch_jobs": [], "launch_lq": [], "em_iters": 0,
-               "em_max_abs_diff": 0.0},
+    "stage4": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "planned": 0, "jobs": 0,
+               "launch_jobs": [], "launch_lq": [], "ops_max": 0, "overflow": 0},
+    "stage7": {"calls": 0, "fallbacks": 0, "seconds": 0.0, "planned": 0, "jobs": 0,
+               "launch_jobs": [], "launch_lq": []},
 }
 
 
@@ -154,52 +141,7 @@ def _build_target_pool(tgt_bytes: list[bytes], ext: bool = False):
     return t_pool, tlens_pool
 
 
-# ── stage 7: NM tie-break + EM ──────────────────────────────────────────────
-
-
-def stage7_tie_sets(score, nm, row_read, row_asv, n_asvs: int):
-    """Tie-set closure over flat job rows (the reference's
-    _stage7_align_local after its forward): a row is valid when its score
-    is positive; the winner of a (read, ASV) is its highest score, the
-    earliest row on ties; a read's tie set is its winners at its least NM.
-    score / nm int32 and row_read / row_asv int64 tensors of one length, in
-    plan order.  Returns in_tie (bool)."""
-    n = score.shape[0]
-    dev = score.device
-    if n == 0:
-        return torch.zeros(0, dtype=torch.bool, device=dev)
-    valid = score > 0
-    key = score.long() * n - torch.arange(n, device=dev)
-    _, grp = torch.unique(row_read * n_asvs + row_asv, return_inverse=True)
-    lowest = torch.iinfo(torch.int64).min
-    best = torch.full((int(grp.max()) + 1,), lowest, dtype=torch.int64, device=dev)
-    best.scatter_reduce_(0, grp, torch.where(valid, key, lowest), "amax", include_self=True)
-    winner = valid & (key == best[grp])
-    big = 1 << 20
-    _, rd = torch.unique(row_read, return_inverse=True)
-    nm_eff = torch.where(winner, nm.long(), big)
-    best_nm = torch.full((int(rd.max()) + 1,), big, dtype=torch.int64, device=dev)
-    best_nm.scatter_reduce_(0, rd, nm_eff, "amin", include_self=True)
-    return winner & (nm_eff == best_nm[rd])
-
-
-def stage7_em(in_tie, row_read, row_asv, n_asvs: int, em_iters: int, conv: float = EM_CONV,
-              stats: dict | None = None):
-    """EM fixed point over the tie sets (the reference's _stage7_em_local):
-    every assigned read weighs 1, responsibilities are proportional to the
-    abundances inside its tie set, uniform start, stop at em_iters or when
-    the largest change falls below conv / assigned reads.  Returns (abund
-    (n_asvs,) float32 on the rows' device, assigned read count)."""
-    rd_all = row_read[in_tie]
-    if rd_all.numel() == 0:
-        return torch.full((n_asvs,), 1.0 / n_asvs, dtype=torch.float32, device=in_tie.device), 0
-    reads, rd = torch.unique(rd_all, return_inverse=True)
-    count = int(reads.numel())
-    abund = em_abundances_torch(
-        rd, row_asv[in_tie], torch.ones(count, dtype=torch.float32, device=in_tie.device),
-        n_asvs, float(count), conv / count, em_iters, stats,
-    )
-    return abund, count
+# ── stage 7: NM tie-break ───────────────────────────────────────────────────
 
 
 def _winners(n_pairs: int, owner: np.ndarray, score: np.ndarray) -> np.ndarray:
@@ -216,108 +158,67 @@ def _winners(n_pairs: int, owner: np.ndarray, score: np.ndarray) -> np.ndarray:
     return out
 
 
-def em_cross_check(host_abund: np.ndarray, device_abund: np.ndarray) -> float:
-    """max |host float64 EM - device float32 EM| over the abundances, kept in
-    ROUTE_STATS for whoever reads the route's counters."""
-    delta = float(np.abs(np.asarray(host_abund, dtype=np.float64)
-                         - np.asarray(device_abund, dtype=np.float64)).max())
-    ROUTE_STATS["stage7"]["em_max_abs_diff"] = delta
-    return delta
-
-
-def mesh_stage7_tie_break(
+def stage7_nm_values(
     read_seqs: list[bytes],
     asv_seqs: list[bytes],
     qi: np.ndarray,
     ca: np.ndarray,
-    n_asvs: int,
     band: int | None = None,
     device="cuda",
-    em_iters: int | None = None,
-):
+) -> np.ndarray:
     """The device route of stage 7 over the candidate pairs (read_seqs[qi[k]],
     asv_seqs[ca[k]]), the indexed form align_pairs_nm_values_indexed takes:
     plan them with the flat planner, run every job through kernel 1 (NM
-    mode) on `device`, close the tie sets and run the EM fixed point there.
+    mode) on `device` and fetch (score, nm) once.
 
-    Returns (nm_vals, device_abund, assigned_count):
-      nm_vals       (len(qi),) int64, the NM of each pair's winning job, -1
-        where none aligned: align_pairs_nm_values_indexed's array.
-      device_abund  (n_asvs,) float32 numpy, the device EM's abundances.
-        They reach no output: the emitted depths come from the host float64
-        EM, and the caller only logs the difference (em_cross_check).
-    """
+    Returns (len(qi),) int64, the NM of each pair's winning job (highest
+    score, the earliest plan job on ties), -1 where none aligned:
+    align_pairs_nm_values_indexed's array."""
     stats = ROUTE_STATS["stage7"]
     stats["calls"] += 1
     with span(None, stats, "seconds"):
-        with kernel_events() as events:
-            out = _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters,
-                                    stats)
-        stats["kernel_ms"] += events_ms(events)  # after the route's fetches: no wait
-    return out
+        return _stage7_nm_values(read_seqs, asv_seqs, qi, ca, band, device, stats)
 
 
-def _stage7_tie_break(read_seqs, asv_seqs, qi, ca, n_asvs, band, device, em_iters, stats):
+def _stage7_nm_values(read_seqs, asv_seqs, qi, ca, band, device, stats):
     band = resolve_band(band)
-    if em_iters is None:
-        em_iters = EM_MAX_ITERATIONS
     dev = resolve_device(device)
     qi = np.asarray(qi, dtype=np.int64)
     ca = np.asarray(ca, dtype=np.int64)
     with part("plan"):
         plan = _plan_soa_indexed(read_seqs, asv_seqs, qi, ca, band) if len(qi) else "empty"
-
-    nm_vals = None
     if plan is None:
-        # per-job consumer: the same kernel on the same device.  It gives one
-        # winner per pair, so every aligned pair is a row of equal score
+        # per-job consumer: the same kernel on the same device
         stats["fallbacks"] += 1
         log.warning("stage-7 device route: the flat planner declined %d pairs; "
                     "taking the per-job consumer on %s", len(qi), dev)
         nm_vals = align_pairs_nm_values_indexed(read_seqs, asv_seqs, qi, ca, band, device=dev)
-        owner_j = np.flatnonzero(nm_vals >= 0)
-        nm = torch.from_numpy(nm_vals[owner_j].astype(np.int32)).to(dev)
-        score = torch.ones_like(nm)
-        stats["jobs"] += len(owner_j)  # on every rank: the fallback is not shared
-    elif plan == "empty":
-        owner_j = np.zeros(0, dtype=np.int64)
-        score = nm = torch.zeros(0, dtype=torch.int32, device=dev)
-    else:
-        owner_j, q_lens_j, band = plan[0], plan[6], plan[13]
-        with part("upload"):
-            dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
-        with part("launch"):
-            # this rank's jobs: a contiguous range of whole pairs, balanced
-            # by cells (all of them without a process group)
-            lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
-            stats["planned"] += len(owner_j)
-            out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
-            for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
-                sel_t = torch.from_numpy(sel).to(dev)
-                stats["launch_jobs"].append(len(sel))
-                stats["launch_lq"].append(int(q_lens_j[lo + sel].max()))
-                out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
-            # every rank's (score, nm) in plan order
-            out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
-            score, nm = out[:, 0].contiguous(), out[:, 1].contiguous()
-        stats["jobs"] += hi - lo
+        stats["jobs"] += int(np.count_nonzero(nm_vals >= 0))  # on every rank: not shared
+        return nm_vals
+    if plan == "empty":  # no pair, or no job: nothing aligned
+        return np.full(len(qi), -1, dtype=np.int64)
 
+    owner_j, q_lens_j, band = plan[0], plan[6], plan[13]
     with part("upload"):
-        row_read = torch.from_numpy(qi[owner_j]).to(dev)
-        row_asv = torch.from_numpy(ca[owner_j]).to(dev)
-    with part("em"):
-        in_tie = stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
-        em_stats: dict = {}
-        abund, count = stage7_em(in_tie, row_read, row_asv, n_asvs, em_iters, stats=em_stats)
-    stats["em_iters"] = em_stats.get("iters", 0)
-
+        dp = plan_to_device(plan, *_build_target_pool(asv_seqs), dev)
+    with part("launch"):
+        # this rank's jobs: a contiguous range of whole pairs, balanced by
+        # cells (all of them without a process group)
+        lo, hi, sizes = my_share(q_lens_j * band, group=owner_j)
+        stats["planned"] += len(owner_j)
+        out = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
+        for sel in length_chunks_lens(q_lens_j[lo:hi], band, payload=False):
+            sel_t = torch.from_numpy(sel).to(dev)
+            stats["launch_jobs"].append(len(sel))
+            stats["launch_lq"].append(int(q_lens_j[lo + sel].max()))
+            out[sel_t] = sw_forward(*plan_tensors(dp, sel_t + lo), band)
+        # every rank's (score, nm) in plan order
+        out = all_gather_rows(out[:, [0, 3]].contiguous(), sizes)
+    stats["jobs"] += hi - lo
     with part("fetch"):
-        if nm_vals is None:
-            fetched = torch.stack([score, nm]).cpu().numpy()  # the result's fetch
-            win = _winners(len(qi), owner_j, fetched[0])
-            nm_vals = np.where(win >= 0, fetched[1][win], -1).astype(np.int64)
-        abund = abund.cpu().numpy()
-    return nm_vals, abund, count
+        score, nm = out.cpu().numpy().T  # the result's fetch
+        win = _winners(len(qi), owner_j, score)
+        return np.where(win >= 0, nm[win], -1).astype(np.int64)
 
 
 # ── stage 4: pileup count matrices ──────────────────────────────────────────
@@ -357,15 +258,12 @@ def mesh_stage4_pileups(twin_reads, consensuses, args):
     launches cut by payload bytes, with the counts accumulated there and
     fetched once; each launch still waits for the device where the module
     docstring says.  Returns the PileupMatrix list and sets every consensus'
-    hp_lengths, as the host route does."""
+    hp_lengths, as the per-job consumer does."""
     stats = ROUTE_STATS["stage4"]
     stats["calls"] += 1
     stats["overflow"] = 0
     with span(None, stats, "seconds"):
-        with kernel_events() as events:
-            pms = _stage4_pileups(twin_reads, consensuses, args, stats)
-        stats["kernel_ms"] += events_ms(events)  # after the route's last fetch: no wait
-    return pms
+        return _stage4_pileups(twin_reads, consensuses, args, stats)
 
 
 def _stage4_pileups(twin_reads, consensuses, args, stats):
@@ -548,25 +446,19 @@ def split_kmer_count(code_list, phred_list, k: int, min_bq: int, device,
     (balanced by bases), sends every key to its owner with one all_to_all
     (_to_owners), counts what it owns, and the owners' disjoint tables are
     gathered and merged on every rank.  No default path takes it, as none
-    takes the reference's.  With `stats`, the
-    parts' seconds are added to upload_s, kernel4_s, compact_s,
-    sort_count_s and fetch_s, and the sizes to positions, flagged (this
-    rank's) and distinct."""
+    takes the reference's.  With `stats`, the sizes are added to positions,
+    flagged (this rank's) and distinct."""
     dev = resolve_device(device)
-    clock = PartClock(dev)
     if group:
         lo, hi, _ = my_share(np.fromiter((len(c) for c in code_list), np.int64, len(code_list)))
         code_list = code_list[lo:hi]
         phred_list = phred_list[lo:hi] if phred_list is not None else None
-    batch, flagged, _ = flagged_on_device(code_list, phred_list, k, min_bq, dev, clock)
+    batch, flagged, _ = flagged_on_device(code_list, phred_list, k, min_bq, dev)
     kmers, counts = count_flagged(_to_owners(flagged) if group else flagged)
     if group:
         kmers, counts = _gather_tables(kmers, counts)
-    clock.mark("sort_count_s")
     out = kmers.cpu().numpy().view(np.uint64), counts.cpu().numpy().view(np.uint32)
-    clock.mark("fetch_s")
     if stats is not None:
-        clock.add_to(stats)
         stats["positions"] += batch.n_pos
         stats["flagged"] += flagged.shape[0]
         stats["distinct"] += len(out[0])

@@ -10,7 +10,6 @@ from ..config import ExportArgs
 from ..constants import ASV_FILE
 from ..io.fastx import read_fastx
 from ..ops.encode import revcomp_bytes
-from ..ops.kmers import minimizer_sketch
 
 log = logging.getLogger("savont")
 
@@ -99,14 +98,6 @@ def read_asv_mapping_keys(path: Path) -> list[tuple[str, str]]:
         lineage = ";".join(fields[i] for i in idxs if i is not None and i < len(fields))
         out.append((fields[0], lineage))
     return out
-
-
-def compute_minimizers(seq: bytes) -> np.ndarray:
-    """merge.rs:217-224 — (w=28, k=31) sketch values, sorted + deduped.
-    ASCII decodes through BYTE_TO_SEQ inside the sketch (seeding.rs:124),
-    exactly like the reference."""
-    vals, _ = minimizer_sketch(np.frombuffer(seq, dtype=np.uint8), 28, 31)
-    return np.unique(vals)
 
 
 def fuzzy_merge_table(table: dict[str, tuple[bytes, list[int]]], hash_to_lineage: dict[str, str]) -> int:

@@ -149,30 +149,6 @@ def read_pileup_indices(
     return bq_flat, td, ins_flat, hp_flat
 
 
-def add_read_to_pileup(
-    pm: PileupMatrix,
-    oseq: bytes,
-    oqual: np.ndarray,
-    ohp: np.ndarray | None,
-    cigar: list[tuple[int, int]],
-    t_start: int,
-    q_start: int,
-    max_ins_store: int = 2,
-) -> None:
-    """Single-read scatter (kept for API parity; the batch path in
-    generate_consensus_pileups accumulates indices instead)."""
-    L = len(pm.ref)
-    bq_flat, td, ins_flat, hp_flat = read_pileup_indices(
-        pm.ref, oseq, oqual, ohp if pm.hp_hist is not None else None,
-        cigar, t_start, q_start,
-    )
-    pm.bq.reshape(-1)[:] += np.bincount(bq_flat, minlength=L * NQ * 2)
-    pm.dels += np.bincount(td, minlength=L)
-    pm.ins_q.reshape(-1)[:] += np.bincount(ins_flat, minlength=L * NQ)
-    if pm.hp_hist is not None and hp_flat is not None:
-        pm.hp_hist.reshape(-1)[:] += np.bincount(hp_flat, minlength=L * 64)
-
-
 _PILEUP_LIB = None
 _PILEUP_TRIED = False
 
@@ -386,23 +362,21 @@ def _pileup_payload(
 def generate_consensus_pileups(
     twin_reads: list[TwinRead], consensuses: list[ConsensusSequence], args: ClusterArgs
 ) -> list[PileupMatrix]:
-    """alignment.rs:409-652 on the matrix representation.
+    """alignment.rs:409-652 on the matrix representation: the whole
+    construction (orient, banded align, traceback, count-matrix scatter)
+    runs through the device route (parallel/mesh.mesh_stage4_pileups)."""
+    from ..parallel.mesh import mesh_stage4_pileups
 
-    args.stage4_backend == "mesh" routes the whole construction (orient,
-    banded align, traceback, count-matrix scatter) through the device route
-    (parallel/mesh.mesh_stage4_pileups), bit-identical to the host route."""
-    if args.stage4_backend == "mesh":
-        from ..parallel.mesh import mesh_stage4_pileups
-
-        return mesh_stage4_pileups(twin_reads, consensuses, args)
-    return host_consensus_pileups(twin_reads, consensuses, args)
+    return mesh_stage4_pileups(twin_reads, consensuses, args)
 
 
 def host_consensus_pileups(
     twin_reads: list[TwinRead], consensuses: list[ConsensusSequence], args: ClusterArgs
 ) -> list[PileupMatrix]:
-    """The host route: the alignments run on args.device through the per-job
-    consumer (kernels 1 and 2); the count-matrix scatter runs on the host."""
+    """The per-job consumer for inputs the flat planner declines
+    (parallel/mesh.mesh_stage4_pileups falls back to it): the alignments run
+    on args.device through kernels 1 and 2 job by job, and the count-matrix
+    scatter runs on the host."""
     owners, payload = _pileup_payload(twin_reads, consensuses, args)
     pairs = [p[0] for p in payload]
     # indexed form: consensuses are the target pool (deduped by id), reads

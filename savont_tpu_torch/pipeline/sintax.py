@@ -21,7 +21,6 @@ from ..db import taxonomy as tax
 from ..device import resolve_device
 from ..io.fastx import read_fastx, read_fastx_stream
 from ..parallel import distributed
-from ..ops.align_torch import events_ms, kernel_events
 from ..ops.sintax_torch import (
     index_on, keys_int64, query_index, ref_rows, ref_rows_on, sintax_ref_kmers, sintax_scores_rows,
 )
@@ -39,19 +38,17 @@ ORDINAL_MAX = 0x3FFFFFF  # the largest ordinal a key holds (its low 26 bits)
 # lookups, keys_s; the chunk's bytes joined and its offsets, extract_s) and
 # in the chunks' flushes (flush_s, span "sintax:flush": uploads, kernel-6
 # and kernel-3 launches), the rows whose k-mers kernel 6 extracted on the
-# card (kmer_rows_card: refs on the card, 0 on the CPU), and device
-# milliseconds of the launches of kernels 6 and 3 (CUDA events read after
-# the one fetch; 0.0 on the CPU); the database's records and bases
-# streamed and the records with a taxonomy entry (db_records, db_bases,
-# db_kept); the CLI's load of the database (db_load_s, span
-# "sintax:db_load"); and the database stream's inflate counts
+# card (kmer_rows_card: refs on the card, 0 on the CPU); the database's
+# records and bases streamed and the records with a taxonomy entry
+# (db_records, db_bases, db_kept); the CLI's load of the database
+# (db_load_s, span "sintax:db_load"); and the database stream's inflate counts
 # (io/fastx.INFLATE_COUNTS: the workers that inflate one gzip file on
 # several cores, 0 where one thread does, its chunks started speculatively
 # and verified, those the real decode went through itself, and hand-backs
 # to gzread)
 SCORE_STATS = {"calls": 0, "refs": 0, "seconds": 0.0, "kmers_s": 0.0, "parse_s": 0.0,
                "read_s": 0.0, "keys_s": 0.0, "extract_s": 0.0, "flush_s": 0.0,
-               "kmer_rows_card": 0, "kernel_ms": 0.0, "db_records": 0, "db_bases": 0,
+               "kmer_rows_card": 0, "db_records": 0, "db_bases": 0,
                "db_kept": 0, "db_load_s": 0.0, "inflate_workers": 0, "inflate_chunks_spec": 0,
                "inflate_chunks_redo": 0, "inflate_fallback": 0}
 
@@ -181,10 +178,7 @@ def _device_scores(subs: np.ndarray, db: tax.Database, n_pairs: int, device, thr
     stats = SCORE_STATS
     stats["calls"] += 1
     with span(None, stats, "seconds"):
-        with kernel_events() as events:
-            out = _scores_on(subs, db, n_pairs, resolve_device(device), stats, threads)
-        stats["kernel_ms"] += events_ms(events)  # after the one fetch: no wait
-    return out
+        return _scores_on(subs, db, n_pairs, resolve_device(device), stats, threads)
 
 
 def _scores_on(subs, db, n_pairs, dev, stats, threads):

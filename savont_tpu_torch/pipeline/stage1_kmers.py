@@ -170,17 +170,14 @@ def _iter_reads_for_counting(files: list[str]):
 
 
 # stage 1's count by part, summed over calls: seconds of parse + encode,
-# of the device route's upload, kernel 4, compaction, sort + count and fetch
-# (CUDA events between its marks, ops.align_torch.PartClock), of the host
-# scan + count (the host route's streamed count includes its parse), and of
-# the strand filter; reads, positions, flagged k-mers and distinct k-mers
-# (device route), and the route of the last call.  The asv stage's parts
-# (tracing.part) split the same time: "1.feed_wait", the count loop waiting
-# for the feeder's parse + encode; "1.count", the scan, count and merge
-# (the host count, or the device route's) and the strand filter
+# of the host scan + count (the host route's streamed count includes its
+# parse), and of the strand filter; reads, positions, flagged k-mers and
+# distinct k-mers (device route), and the route of the last call.  The asv
+# stage's parts (tracing.part) split the same time: "1.feed_wait", the count
+# loop waiting for the feeder's parse + encode; "1.count", the scan, count
+# and merge (the host count, or the device route's) and the strand filter
 COUNT_STATS = {"calls": 0, "route": "", "reads": 0, "positions": 0, "flagged": 0, "distinct": 0,
-               "parse_encode_s": 0.0, "upload_s": 0.0, "kernel4_s": 0.0, "compact_s": 0.0,
-               "sort_count_s": 0.0, "fetch_s": 0.0, "host_count_s": 0.0, "filter_s": 0.0}
+               "parse_encode_s": 0.0, "host_count_s": 0.0, "filter_s": 0.0}
 
 
 def reset_count_stats() -> None:

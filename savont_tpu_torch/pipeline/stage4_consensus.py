@@ -32,12 +32,6 @@ from ..tracing import part
 log = logging.getLogger("savont")
 
 
-def _read_seq_and_qual(tr: TwinRead) -> tuple[bytes, np.ndarray]:
-    """ASCII sequence + per-base expanded binned qualities
-    (alignment.rs:231-258)."""
-    return tr.seq_bytes(), tr.expanded_qual_ascii()
-
-
 # per-level accuracy 1 - 10^(-3*level/10); same doubles as the elementwise
 # power the per-read formula produced (levels are 0..15, table padded to 64)
 _ACC_LUT = 1.0 - np.power(10.0, -(np.arange(64, dtype=np.float64) * 3.0) / 10.0)
@@ -68,11 +62,6 @@ def _avg_qual_batch(trs: list[TwinRead]) -> np.ndarray:
         if v is not None:
             out[i] = v
     return out
-
-
-def _avg_qual(tr: TwinRead) -> float:
-    """Single-read wrapper over _avg_qual_batch (same values)."""
-    return float(_avg_qual_batch([tr])[0])
 
 
 # ── consensus via template + weighted column vote (spoa replacement) ─────────

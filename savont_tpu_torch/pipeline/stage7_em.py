@@ -10,7 +10,7 @@ from ..config import ClusterArgs
 from ..constants import EM_MAX_ITERATIONS, EM_MINIMIZER_RATIO_BASE, EM_RATIO_THRESHOLD
 from ..core import ConsensusSequence, KmerGlobalInfo, TwinRead
 from ..ops.align import TargetIndex
-from ..ops.align_batch import align_pairs_nm_values_indexed, map_batch
+from ..ops.align_batch import map_batch
 from ..ops.em import em_abundances, groups_to_rows
 from ..ops.encode import U64
 from ..tracing import part
@@ -315,21 +315,12 @@ def refine_asv_depths_with_em(
         cand_trs = [read_list[int(r)] for r in ur.tolist()]
         TwinRead.warm_seq_bytes(cand_trs)  # one batched decode for all misses
         read_seqs = [tr.seq_bytes() for tr in cand_trs]
-    # stage7_backend == "mesh": the align + tie-set + EM step runs on the
-    # device (parallel/mesh.mesh_stage7_tie_break).  The NM winners come back
-    # equal to align_pairs_nm's, and the emitted depths still use the host
-    # float64 EM; the device float32 abundances are cross-checked below.
-    dev_abund = None
-    if args.stage7_backend == "mesh" and len(cr):
-        from ..parallel.mesh import mesh_stage7_tie_break
+    # stage 7 reads only NM: the device route (kernel 1, NM mode) returns
+    # one flat int64 array (-1 = unaligned), the winners align_pairs_nm
+    # picks; the tie sets and the EM below run on the host
+    from ..parallel.mesh import stage7_nm_values
 
-        nm_vals, dev_abund, _dev_count = mesh_stage7_tie_break(
-            read_seqs, asv_seqs, qi, ca, len(consensuses), device=args.device
-        )
-    else:
-        # stage 7 reads only NM: the values API returns one flat int64 array
-        # (-1 = unaligned) with no Mapping objects (kernel 1, NM mode)
-        nm_vals = align_pairs_nm_values_indexed(read_seqs, asv_seqs, qi, ca, device=args.device)
+    nm_vals = stage7_nm_values(read_seqs, asv_seqs, qi, ca, device=args.device)
 
     ok = nm_vals >= 0
     nm_all = np.where(ok, nm_vals, 0)
@@ -421,14 +412,6 @@ def refine_asv_depths_with_em(
             c.ambig_read_map_count = int(ambig[i])
             c.num_map_leq_10nm = int(leq10[i])
         abund = _run_em(eq_classes, len(consensuses), total_assigned)
-        if dev_abund is not None:
-            # float32 index_add_ on a CUDA device adds in no fixed order, so
-            # the device abundances differ in their last bits between runs;
-            # they are held to the host EM within 1e-4 and reach no output
-            from ..parallel.mesh import em_cross_check
-
-            log.info("Stage 7 device EM cross-check: max |host - device| = %.3e",
-                     em_cross_check(abund, dev_abund))
         consensuses = _apply_depths(consensuses, abund, total_assigned)
     return consensuses, eq_classes, total_assigned
 

@@ -8,6 +8,8 @@ can be named by the innermost span open over them.  With nothing recording
 it opens no record_function, records no CUDA event and never synchronises:
 its cost is two clock reads and one check of the profiler's state.  A span
 without a name is a plain timer, for counters that name no part of a trace.
+The package records no CUDA event of its own: device time is read from the
+profiler's trace.
 
 `part(name)` is the span of a part of the running `asv` stage
 (pipeline/asv._mark sets it with `enter_stage`): key "<stage>.<name>" in

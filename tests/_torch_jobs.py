@@ -154,7 +154,7 @@ def lo_panel_of(plan, order, rows_flat, n_rows, Lq):
 
 def stage7_panels(plan, pair_read, pair_asv, n_reads, tgt_bytes, smooth=True):
     """The reference's stage-7 candidate panels from its flat plan, packed as
-    mesh_stage7_tie_break packs them (one device, one chunk, the unpacked
+    the JAX mesh packs them (one device, one chunk, the unpacked
     layout): q (R, C, Lq) pad 5, lo (R, C, Lq+1) smoothed, slot_tid /
     slot_asv (R, C) with -1 for empty slots, the target pool, and rows_flat
     / order, the panel row of each plan job."""

@@ -1,15 +1,12 @@
-"""On the card: the port's `asv --device cuda`, with its device routes of
-stages 4 and 7 ("mesh", the default) and with its per-job routes ("perjob":
---stage4-backend host --stage7-backend host), against the JAX package's host
-run_cluster on chip_smoke.py's 5,000 reads ("main"), the same under the
-rRNA-operon preset (--rrna-operon / rrna_operon=True) on its 10,000 operon
-reads ("operon"), and on its scale phase's 100,000 reads of 48 templates
-("scale"), in turns (ORDER below) after one untimed run of each, all in one
-process.  Every run's outputs must equal
-the first host run's, byte for byte; the wall time of each run, the port's
-seconds by stage, inside its device routes (with the device milliseconds of
-kernels 1 and 2 in each) and inside its per-job DP routes are printed as one
-JSON line.
+"""On the card: the port's `asv --device cuda` ("mesh", with the device
+routes of stages 4 and 7) against the JAX package's host run_cluster on
+chip_smoke.py's 5,000 reads ("main"), the same under the rRNA-operon preset
+(--rrna-operon / rrna_operon=True) on its 10,000 operon reads ("operon"),
+and on its scale phase's 100,000 reads of 48 templates ("scale"), in turns
+(ORDER below) after one untimed run of each, all in one process.  Every
+run's outputs must equal the first host run's, byte for byte; the wall time of each run, the port's
+seconds by stage, inside its device routes and inside its per-job DP routes
+are printed as one JSON line.
 
 Skips without a card.  On the card (no jax there, so without this
 directory's conftest; `-k main`, `-k operon` or `-k scale` for one sample):
@@ -31,8 +28,7 @@ from savont_tpu_torch.pipeline import asv as port_asv
 
 from _torch_jobs import clear_caches
 
-ORDER = ("host", "mesh", "perjob", "perjob", "mesh", "host", "host", "mesh", "perjob")
-ROUTES = {"mesh": [], "perjob": ["--stage4-backend", "host", "--stage7-backend", "host"]}
+ORDER = ("host", "mesh", "mesh", "host", "host", "mesh")
 
 
 @pytest.mark.parametrize("sample", ["main", "operon", "scale"])
@@ -58,17 +54,16 @@ def test_card_run_matches_host_run_in_turns(tmp_path, sample):
                                     rrna_operon=operon))
             return {"side": side, "wall_s": time.perf_counter() - t0}
         assert cli.main(["--log-level", "warn", "asv", str(fq), "-o", str(out),
-                         "--device", "cuda", "-t", "4", *preset, *ROUTES[side]]) == 0
+                         "--device", "cuda", "-t", "4", *preset]) == 0
         torch.cuda.synchronize()
         return {"side": side, "wall_s": time.perf_counter() - t0,
                 "dp_route_s": sum(v for k, v in port_asv.STAGE_SECONDS.items()
                                   if k.endswith(".dp")),
                 "device_route_s": {k: v["seconds"] for k, v in mesh.ROUTE_STATS.items()},
-                "device_route_kernel_ms": {k: v["kernel_ms"] for k, v in mesh.ROUTE_STATS.items()},
                 "stage_s": dict(port_asv.STAGE_SECONDS)}
 
     first = {side: run(side, tmp_path / f"{side}_warmup")["wall_s"]
-             for side in ("host", "mesh", "perjob")}
+             for side in ("host", "mesh")}
     runs = []
     for i, side in enumerate(ORDER):
         runs.append(run(side, tmp_path / f"run{i}"))

@@ -117,7 +117,7 @@ def test_cli_markdown_help(capsys):
     assert out.startswith("# savont-tpu-torch")
     for name in ("asv", "classify", "sintax", "download", "export"):
         assert f"## `savont-tpu-torch {name}`" in out
-    assert "--device" in out and "--stage4-backend" in out
+    assert "--device" in out and "--stage1-backend" in out and "--stage4-backend" not in out
     assert jax_main(["--markdown-help"]) in (0, None)
     want = capsys.readouterr().out
     assert [ln.split()[-1] for ln in out.splitlines() if ln.startswith("## ")] == \

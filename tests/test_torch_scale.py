@@ -168,14 +168,19 @@ def test_sintax_chunks_equal_the_host_run(work, monkeypatch, capped):
 
 def _scale_run(**over) -> dict:
     """A scale run's counters as cli_asv returns them, every check met."""
-    st = {"calls": 1, "fallbacks": 0, "kernel_ms": 30.0, "planned": 99_946, "jobs": 99_946,
+    s7 = {"calls": 1, "fallbacks": 0, "planned": 99_946, "jobs": 99_946,
           "launch_jobs": [16384] * 6 + [1642]}
-    s4 = {**st, "planned": 46_244, "jobs": 46_244, "launch_jobs": [15437, 15427, 15380]}
-    s7 = {**st, "em_max_abs_diff": 1e-9}
+    s4 = {**s7, "planned": 46_244, "jobs": 46_244, "launch_jobs": [15437, 15427, 15380]}
+    # the launches inside each route; the stage-4 votes and stages 5-6
+    # launch beside them, in the run-wide counts
+    l4 = {"sw_forward_nm": 0, "sw_forward_payload": 3, "sw_walk": 3}
+    l7 = {"sw_forward_nm": 7, "sw_forward_payload": 0, "sw_walk": 0}
+    launches = {"sw_forward_nm": 12, "sw_forward_payload": 9, "sw_walk": 9}
     for k, v in over.items():
-        route, key = k.split("__")
-        (s4 if route == "s4" else s7)[key] = v
-    return {"routes": {"stage4": s4, "stage7": s7}}
+        what, key = k.split("__")
+        {"s4": s4, "s7": s7, "l4": l4, "l7": l7, "launches": launches}[what][key] = v
+    return {"routes": {"stage4": s4, "stage7": s7}, "launches": launches,
+            "route_launches": {"stage4": l4, "stage7": l7}}
 
 
 BAD_SCALE_RUNS = {
@@ -187,8 +192,10 @@ BAD_SCALE_RUNS = {
     "stage7_launches_short_of_the_jobs": {"s7__launch_jobs": [16384] * 6},
     "stage7_too_few_jobs": {"s7__planned": 40_000, "s7__jobs": 40_000,
                             "s7__launch_jobs": [20_000, 20_000]},
-    "no_kernel_time": {"s4__kernel_ms": 0.0},
-    "em_past_tolerance": {"s7__em_max_abs_diff": 2e-4},
+    "no_launches": {"l7__sw_forward_nm": 0},
+    "stage4_walks_short_of_its_launches": {"l4__sw_walk": 2},
+    "stage7_launches_outside_the_route": {"l7__sw_forward_nm": 6},
+    "stage4_fallback": {"s4__fallbacks": 1},
 }
 
 
@@ -202,8 +209,8 @@ def test_scale_routes_check_passes_the_measured_run():
 def test_scale_routes_check_refuses(bad):
     """check_asv_routes fails a scale run whose route fell back, ran
     other jobs than it planned, took one launch, passed PAIRS_PER_LAUNCH,
-    read no kernel time, carried under half the reads through stage 7, or
-    whose device EM left the tolerance."""
+    counted fewer kernel launches than its launch cut, or carried under half
+    the reads through stage 7."""
     with pytest.raises(AssertionError):
         chip_smoke.check_asv_routes("scale", _scale_run(**BAD_SCALE_RUNS[bad]),
                                        chip_smoke.N_READS_SCALE, min_launches=2)

@@ -83,13 +83,13 @@ def test_stage1_mesh_route_matches_jax(tmp_path, monkeypatch, mode, device_kmers
     assert len(want_k) > 100
     assert got_k.dtype == want_k.dtype and got_c.dtype == want_c.dtype
     assert got_k.tolist() == want_k.tolist() and got_c.tolist() == want_c.tolist()
-    # the route ran kernel 4's plain version once, and timed its parts
+    # the route ran kernel 4's plain version once, and counted its sizes
     st = port_s1.COUNT_STATS
     assert kt.REFERENCE_CALLS["split_kmers"] == 1 and kt.LAUNCHES["split_kmers"] == 0
     assert st["route"] == "mesh" and st["reads"] == 75 and st["positions"] > 0
-    assert st["upload_s"] > 0 and st["kernel4_s"] > 0 and st["fetch_s"] > 0
+    assert 0 < st["flagged"] <= st["positions"] and st["parse_encode_s"] > 0
     if mode == "exact":
-        assert st["sort_count_s"] > 0 and st["host_count_s"] == 0 and st["distinct"] > 0
+        assert st["host_count_s"] == 0 and 0 < st["distinct"] <= st["flagged"]
     else:
         assert st["host_count_s"] > 0
 

@@ -1,15 +1,14 @@
-"""The stage-7 device step of the port (savont_tpu_torch.parallel.mesh:
-stage7_tie_sets, stage7_em, mesh_stage7_tie_break; ops.em.
-em_abundances_torch) on the CPU: against savont_tpu's tie-set closure and EM
-fixed point (_stage7_align_local / _stage7_em_local, run under jax.jit on a
+"""The stage-7 device step of the port on the CPU.  Its route
+(savont_tpu_torch.parallel.mesh.stage7_nm_values) against the host winners
+(align_pairs_nm); the tie-set closure and EM fixed point it keeps beside the
+route (ops.em: stage7_tie_sets, stage7_em, em_abundances_torch) against
+savont_tpu's (_stage7_align_local / _stage7_em_local, run under jax.jit on a
 one-device CPU mesh with kernel="scan", through sharded_stage7_align /
-sharded_stage7_em) on the same panels, and against the host winners
-(align_pairs_nm) and the host float64 EM.
+sharded_stage7_em) on the same panels, and against the host float64 EM.
 
 Tolerances: integers (scores, NM, tie sets, counts) 0.  Abundances: 1e-6
 absolute between the two float32 fixed points, which differ only in the
-order of their sums, and 1e-4 absolute against the host float64 EM, the
-bound the pipeline's cross-check log is read against."""
+order of their sums, and 1e-4 absolute against the host float64 EM."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +17,7 @@ from savont_tpu.ops import align_batch as ref_batch
 from savont_tpu.ops.em import em_abundances, em_abundances_jax
 from savont_tpu.parallel import mesh as ref_mesh
 from savont_tpu_torch.ops import align_torch
-from savont_tpu_torch.ops.em import em_abundances_torch
+from savont_tpu_torch.ops.em import em_abundances_torch, stage7_em, stage7_tie_sets
 from savont_tpu_torch.parallel import mesh as port_mesh
 
 from _torch_jobs import clear_caches, panel_rows, rand_seq, stage7_panels, substitute
@@ -87,13 +86,13 @@ def test_tie_sets_and_em_equal_the_jax_closures(seed):
     np.testing.assert_array_equal(nm.numpy(), nm_r.reshape(-1)[rf])
     row_read = torch.from_numpy(pr[plan[0][order]])
     row_asv = torch.from_numpy(pa[plan[0][order]])
-    in_tie = port_mesh.stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
+    in_tie = stage7_tie_sets(score, nm, row_read, row_asv, n_asvs)
     np.testing.assert_array_equal(in_tie.numpy(), tie_r.reshape(-1)[rf])
     assert not tie_r.reshape(-1)[np.setdiff1d(np.arange(tie_r.size), rf)].any()
     assert 0 < int(in_tie.sum()) < len(rf)
 
     stats = {}
-    abund, count = port_mesh.stage7_em(in_tie, row_read, row_asv, n_asvs, EM_ITERS, stats=stats)
+    abund, count = stage7_em(in_tie, row_read, row_asv, n_asvs, EM_ITERS, stats=stats)
     assert count == int(count_r) == n_reads - 1  # the unrelated read is unassigned
     assert 1 <= stats["iters"] <= EM_ITERS
     np.testing.assert_allclose(abund.numpy(), np.asarray(abund_r), rtol=0, atol=1e-6)
@@ -108,54 +107,35 @@ def test_tie_set_rules_on_a_hand_made_case():
     nm = torch.tensor([3, 1, 5, 0, 2, 2, 0, 7], dtype=torch.int32)
     read = torch.tensor([0, 0, 0, 0, 1, 1, 2, 3])
     asv = torch.tensor([0, 0, 1, 2, 0, 1, 0, 1])
-    tie = port_mesh.stage7_tie_sets(score, nm, read, asv, 3)
+    tie = stage7_tie_sets(score, nm, read, asv, 3)
     # read 0: ASV 0's winner is row 0 (first of the equal scores, NM 3), ASV
     # 1's row 2 (NM 5): the tie set is row 0 alone, although row 1 has NM 1
     assert tie.tolist() == [True, False, False, False, True, True, False, True]
-    abund, count = port_mesh.stage7_em(tie, read, asv, 3, 100)
+    abund, count = stage7_em(tie, read, asv, 3, 100)
     assert count == 3 and abs(float(abund.sum()) - 1) < 1e-6
-    empty = port_mesh.stage7_tie_sets(score[:0], nm[:0], read[:0], asv[:0], 3)
+    empty = stage7_tie_sets(score[:0], nm[:0], read[:0], asv[:0], 3)
     assert empty.shape == (0,)
-    abund0, count0 = port_mesh.stage7_em(empty, read[:0], asv[:0], 3, 100)
+    abund0, count0 = stage7_em(empty, read[:0], asv[:0], 3, 100)
     assert count0 == 0 and abund0.tolist() == pytest.approx([1 / 3] * 3)
 
 
 @pytest.mark.parametrize("seed", [33, 34])
-def test_route_equals_host_winners_and_host_em(seed):
-    """mesh_stage7_tie_break on raw corridors against the per-job consumer's
-    winners (NM per pair, -1 where none aligned) and the host float64 EM
-    over the tie sets those winners give."""
+def test_route_equals_host_winners(seed):
+    """stage7_nm_values on raw corridors against the per-job consumer's
+    winners: NM per pair, -1 where none aligned."""
     from savont_tpu_torch.ops.align_batch import align_pairs_nm
 
     pairs, pr, pa, asvs, reads = _workload(seed, n_reads=14)
-    n_asvs = len(asvs)
     clear_caches()
     port_mesh.reset_route_stats()
-    nm_vals, abund, count = port_mesh.mesh_stage7_tie_break(
-        reads, asvs, pr, pa, n_asvs, band=BAND, device="cpu", em_iters=EM_ITERS)
+    nm_vals = port_mesh.stage7_nm_values(reads, asvs, pr, pa, band=BAND, device="cpu")
     st = port_mesh.ROUTE_STATS["stage7"]
     assert (st["calls"], st["fallbacks"]) == (1, 0) and st["jobs"] >= len(pairs) - 2
-    assert abund.dtype == np.float32 and abund.shape == (n_asvs,)
     assert nm_vals.dtype == np.int64 and nm_vals.shape == (len(pairs),)
-
     host = align_pairs_nm(pairs, band=BAND, device="cpu")
     assert [-1 if m is None else m.nm for m in host] == nm_vals.tolist()
     assert int((nm_vals >= 0).sum()) >= len(pairs) - 2
     assert (nm_vals == -1).any()  # the unrelated read aligns to nothing
-
-    # host tie sets from the winners, then the host float64 EM
-    nm_of = {}
-    for (r, a, m) in zip(pr.tolist(), pa.tolist(), host):
-        if m is not None:
-            nm_of.setdefault(r, {})[a] = m.nm
-    groups = [(tuple(a for a, v in sorted(d.items()) if v == min(d.values())), 1.0)
-              for _, d in sorted(nm_of.items())]
-    assert count == len(groups)
-    from savont_tpu.ops.em import groups_to_rows
-
-    gids, iids, w = groups_to_rows(groups)
-    want = em_abundances(gids, iids, w, n_asvs, float(count), 0.01 / count, EM_ITERS)
-    np.testing.assert_allclose(abund.astype(np.float64), want, rtol=0, atol=1e-4)
 
 
 def test_em_abundances_torch_against_jax_and_host():
@@ -185,13 +165,13 @@ def test_route_falls_to_the_per_job_consumer_and_counts_it(monkeypatch):
     """When the flat planner declines, the route takes the per-job consumer
     on the same device, gives the same answer and counts the fallback."""
     _pairs, pr, pa, asvs, reads = _workload(36, n_reads=6)
-    args = (reads, asvs, pr, pa, len(asvs))
+    args = (reads, asvs, pr, pa)
     clear_caches()
-    nm_vals, abund, count = port_mesh.mesh_stage7_tie_break(*args, band=BAND, device="cpu", em_iters=50)
+    nm_vals = port_mesh.stage7_nm_values(*args, band=BAND, device="cpu")
     port_mesh.reset_route_stats()
     monkeypatch.setattr(port_mesh, "_plan_soa_indexed", lambda *a, **k: None)
-    nm_vals2, abund2, count2 = port_mesh.mesh_stage7_tie_break(*args, band=BAND, device="cpu", em_iters=50)
-    assert port_mesh.ROUTE_STATS["stage7"]["fallbacks"] == 1
+    nm_vals2 = port_mesh.stage7_nm_values(*args, band=BAND, device="cpu")
+    st = port_mesh.ROUTE_STATS["stage7"]
+    assert (st["calls"], st["fallbacks"]) == (1, 1)
+    assert st["jobs"] == int((nm_vals2 >= 0).sum())
     np.testing.assert_array_equal(nm_vals, nm_vals2)
-    assert count == count2
-    np.testing.assert_allclose(abund, abund2, rtol=0, atol=1e-6)
